@@ -122,3 +122,28 @@ class Image:
 
     def to_numpy(self) -> np.ndarray:
         return self.data.detach().to("cpu", torch.float32).numpy()
+
+
+def image_from_stars(img: Image, hfr_multiple: float = 2.0) -> Image:
+    """Render the detected stars of `img` as filled discs of radius
+    hfr * hfr_multiple and value mass / (pi radius^2), later stars over
+    earlier ones, on a copy of its pixels (fits.go:199-222). Host-side, as
+    in the JAX package (nightlight_tpu/image.py image_from_stars): it only
+    serves the -stars debug saves."""
+    res = Image.like(img)
+    data = np.array(img.to_numpy())
+    h, w = img.height, img.width
+    stars = img.stars
+    for k in range(len(stars) if stars is not None else 0):
+        radius = float(stars.hfr[k]) * hfr_multiple
+        color = float(stars.mass[k]) / (radius * radius * math.pi)
+        r_int = int(math.ceil(radius))
+        offs = np.arange(-r_int, r_int + 1)
+        yy, xx = np.meshgrid(offs, offs, indexing="ij")
+        mask = (yy * yy + xx * xx) <= radius * radius + 1e-6
+        ys = int(stars.y[k]) + yy[mask]
+        xs = int(stars.x[k]) + xx[mask]
+        inside = (ys >= 0) & (ys < h) & (xs >= 0) & (xs < w)
+        data[..., ys[inside], xs[inside]] = color
+    res.set_data(torch.from_numpy(data).to(img.device))
+    return res

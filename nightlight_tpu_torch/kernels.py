@@ -1,9 +1,10 @@
 """Build, load and count the hand-written CUDA kernels.
 
-The kernel sources live in ``nightlight_tpu_torch/csrc``. At first use they
-are compiled with ``nvcc`` for Hopper (``sm_90a``) into ONE shared library
-with a plain C interface, which is loaded with ``ctypes``. The library goes
-to ``build/kernels/<hash of the sources>/`` inside the checkout (listed in
+The kernel sources live in ``nightlight_tpu_torch/csrc``. At first use each
+is compiled with its own ``nvcc`` for Hopper (``sm_90a``), all of them at
+once, and the objects are linked into ONE shared library with a plain C
+interface, which is loaded with ``ctypes``. The library goes to
+``build/kernels/<hash of the sources>/`` inside the checkout (listed in
 .gitignore), so an edited source rebuilds and an unchanged one is reused
 within a checkout.
 
@@ -30,15 +31,17 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("stack_clip.cu", "stack_linfit.cu", "gather_patches.cu")
+SOURCES = ("stack_clip.cu", "stack_linfit.cu", "stack_single_pass.cu", "gather_patches.cu",
+           "sort_sum.cu")
 HEADERS = ("common.cuh",)
 # -fmad=false: no contraction of a*b+c into one rounding, so the kernels
 # round like the plain PyTorch versions they are checked against
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel name -> launches counted by its wrapper
-KERNEL_NAMES = ("stack_clip", "stack_linfit", "gather_patches")
+KERNEL_NAMES = ("stack_clip", "stack_linfit", "stack_single_pass", "gather_patches",
+                "sort_sum")
 _launches = {name: 0 for name in KERNEL_NAMES}
 
 _lib = None
@@ -89,17 +92,34 @@ def build() -> Path:
         BUILD_INFO.setdefault("cached", True)
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".lib.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    nvcc = _nvcc()
+    tag = os.getpid()
+    objs = [out_dir / f".{Path(s).stem}.{tag}.o" for s in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o),
+                               str(CSRC / s)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for s, o in zip(SOURCES, objs)]
+    reports, failed = [], []
+    for s, proc in zip(SOURCES, procs):
+        _, err = proc.communicate()
+        reports.append(f"== {s}\n{err}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {s} ({proc.returncode}):\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = out_dir / f".lib.{tag}.so"
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, lib_path)
-    (out_dir / "ptxas.txt").write_text(proc.stderr)
-    BUILD_INFO.update(seconds=seconds, cached=False, ptxas=proc.stderr)
+    for o in objs:
+        o.unlink()
+    ptxas = "".join(reports)
+    (out_dir / "ptxas.txt").write_text(ptxas)
+    BUILD_INFO.update(seconds=seconds, cached=False, ptxas=ptxas)
     return lib_path
 
 
@@ -117,6 +137,11 @@ def library() -> ctypes.CDLL:
             lib.nl_stack_linfit.argtypes = [vp, i32, i64, i64, f32, f32, f32,
                                             vp, vp, vp, vp, vp]
             lib.nl_stack_linfit.restype = i32
+            lib.nl_stack_single_pass.argtypes = [vp, i32, i64, i64, f32, f32, f32, i32,
+                                                 vp, vp, vp, vp]
+            lib.nl_stack_single_pass.restype = i32
+            lib.nl_sort_sum.argtypes = [vp, i64, i32, i32, vp, vp]
+            lib.nl_sort_sum.restype = i32
             lib.nl_gather_patches.argtypes = [vp, i32, i32, vp, vp, i32, i32,
                                               vp, vp]
             lib.nl_gather_patches.restype = i32

@@ -38,7 +38,9 @@ def _fused_spec_from_seq(op_preproc, args):
     """Fused-preprocess eligibility derived FROM the built sequence: every
     step outside calibrate + badPixel + starDetect [+ backExtract]
     [+ exportStats] must be a no-op and no per-frame save may be set.
-    Returns (spec or None, reason or None)."""
+    Returns (spec or None, reason or None), the reasons word for word the
+    JAX package's. NIGHTLIGHT_NO_FUSED=1 forces the per-frame path, as
+    there."""
     from nightlight_tpu_torch.pipeline.operators import Operator, OpSave
     from nightlight_tpu_torch.pipeline.ops_pre import (
         OpBackExtract, OpBadPixel, OpBin, OpCalibrate, OpDebandHoriz, OpDebandVert, OpDebayer,
@@ -46,6 +48,8 @@ def _fused_spec_from_seq(op_preproc, args):
     from nightlight_tpu_torch.pipeline.ops_ref import OpExportStats
     from nightlight_tpu_torch.pipeline.ops_stack import FusedPreprocessSpec
 
+    if os.environ.get("NIGHTLIGHT_NO_FUSED"):
+        return None, "NIGHTLIGHT_NO_FUSED=1"
     calibrate = bad_pixel = star_detect = debayer = scale_offset = op_bin = None
     deband_h = deband_v = back_extract = None
     for op in op_preproc.steps:

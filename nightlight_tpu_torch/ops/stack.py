@@ -2,9 +2,8 @@
 (reference: internal/ops/stack/stack.go): the modes, the auto rule, the
 weights, the mean modes and the dispatch to the clip kernels.
 
-NaN marks a missing sample. Sigma and winsorized clipping (K1) and linear
-fit (K2) run in ops/stack_cuda.py; median and MAD clipping (the TPU
-package's single-pass kernel) are not ported yet.
+NaN marks a missing sample. Sigma and winsorized clipping (K1), linear fit
+(K2) and median and MAD clipping (K3) run in ops/stack_cuda.py.
 """
 
 from __future__ import annotations
@@ -93,10 +92,17 @@ def stack(frames: torch.Tensor, mode: StackMode, weights=None, sigma_low: float 
     if mode == StackMode.LinearFit:
         data, cl, ch = stack_cuda.stack_linfit(flat, ref_frame_loc, sigma_low, sigma_high)
         return data.reshape(shape), cl, ch
-    if mode in (StackMode.Median, StackMode.MADSigma):
-        raise NotImplementedError(
-            f"stacking mode {int(mode)} needs the median/MAD kernel, which is not "
-            "ported yet (queued in ROADMAP.md)")
+    if mode == StackMode.Median:
+        # no weighted variant: weights are ignored (stack.go:274-303)
+        data, cl, ch = stack_cuda.stack_single_pass(flat, ref_frame_loc)
+        return data.reshape(shape), cl, ch
+    if mode == StackMode.MADSigma:
+        if weights is not None:
+            raise NotImplementedError("MADSigma stacking with weights is unimplemented "
+                                      "(as in the reference)")
+        data, cl, ch = stack_cuda.stack_single_pass(flat, ref_frame_loc, sigma_low,
+                                                    sigma_high, mad=True)
+        return data.reshape(shape), cl, ch
     raise ValueError(f"invalid stacking mode {mode}")
 
 

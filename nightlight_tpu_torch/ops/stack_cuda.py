@@ -1,10 +1,12 @@
-"""Clip-stacking kernels K1 (sigma / winsorized, plain or weighted) and K2
-(linear fit), each beside its plain PyTorch version.
+"""Stacking kernels K1 (sigma / winsorized clip, plain or weighted), K2
+(linear fit) and K3 (median, single-pass MAD sigma clip), each beside its
+plain PyTorch version.
 
-The CUDA sources are ``csrc/stack_clip.cu`` and ``csrc/stack_linfit.cu``;
-they replace the Pallas kernels of nightlight_tpu/ops/stack_pallas.py
-(``_stack_clip_pallas`` and ``_stack_linfit_pallas``) and compute the same
-per-pixel functions. The wrappers take a (N, P) float32 frame block with NaN
+The CUDA sources are ``csrc/stack_clip.cu``, ``csrc/stack_linfit.cu`` and
+``csrc/stack_single_pass.cu``; they replace the Pallas kernels of
+nightlight_tpu/ops/stack_pallas.py (``_stack_clip_pallas``,
+``_stack_linfit_pallas`` and ``_stack_single_pass_pallas``) and compute the
+same per-pixel functions. The wrappers take a (N, P) float32 frame block with NaN
 for missing samples and return ``(stacked (P,), clip_lo, clip_hi)`` with the
 clip totals as 0-d int64 tensors (30 frames x 16.8 MP already holds 5e8
 samples; a larger batch passes 2^31).
@@ -231,6 +233,88 @@ def stack_sigma_plain(frames, ref_loc, sigma_lo, sigma_hi, weights=None, winsori
     outs, clo, chi = [], 0, 0
     for s, e in _blocks(p, n):
         o, cl, ch = _sigma_block(frames[:, s:e], ref_loc, slo, shi, weights, winsorize)
+        outs.append(o)
+        clo = clo + cl
+        chi = chi + ch
+    out = torch.cat(outs) if outs else frames.new_empty(0)
+    zero = torch.zeros((), dtype=torch.int64, device=frames.device)
+    return out, zero + clo, zero + chi
+
+
+# ---------------------------------------------------------------------------
+# K3: median and single-pass MAD sigma clip
+# ---------------------------------------------------------------------------
+
+
+def stack_single_pass(frames: torch.Tensor, ref_loc: float, sigma_lo: float = 0.0,
+                      sigma_hi: float = 0.0, mad: bool = False):
+    """NaN-skipping median (mad=False) or MAD sigma-clipped mean (mad=True)
+    per pixel; the median has no clip counts (both 0)."""
+    _check_frames(frames, "stack_single_pass")
+    if frames.device.type == "cpu":
+        return stack_single_pass_plain(frames, ref_loc, sigma_lo, sigma_hi, mad)
+    return stack_single_pass_cuda(frames, ref_loc, sigma_lo, sigma_hi, mad)
+
+
+def stack_single_pass_cuda(frames, ref_loc, sigma_lo=0.0, sigma_hi=0.0, mad=False):
+    kernels.require_cuda(frames, "stack_single_pass", torch.float32)
+    n, p = frames.shape
+    lib = kernels.library()
+    rows = 2 * n if mad else n
+    q = _chunk_pixels(p, rows * 4)
+    scratch = torch.empty((rows, q), dtype=torch.float32, device=frames.device)
+    out = torch.empty(p, dtype=torch.float32, device=frames.device)
+    clips = torch.empty((2, p), dtype=torch.int32, device=frames.device)
+    stream = kernels.stream_handle(frames.device)
+    for s in range(0, p, q):
+        err = lib.nl_stack_single_pass(
+            frames.data_ptr() + 4 * s, n, p, min(q, p - s), float(sigma_lo), float(sigma_hi),
+            float(ref_loc), int(bool(mad)), scratch.data_ptr(), out.data_ptr() + 4 * s,
+            clips.data_ptr() + 4 * s, stream)
+        kernels.check(err, "stack_single_pass")
+        kernels.count_launch("stack_single_pass")
+    totals = torch.sum(clips, dim=1, dtype=torch.int64)
+    return out, totals[0], totals[1]
+
+
+def _single_pass_block(f, ref_loc, sigma_lo, sigma_hi, mad):
+    n, p = f.shape
+    dev = f.device
+    valid = ~torch.isnan(f)
+    cnt0 = valid.sum(0)
+    svals = torch.sort(torch.where(valid, f, torch.full((), BIG, dtype=f.dtype, device=dev)),
+                       dim=0).values
+    zero = torch.zeros_like(cnt0)
+    ref = torch.full((p,), float(ref_loc), dtype=torch.float32, device=dev)
+    median = _median_range(svals, zero, cnt0)
+    if not mad:
+        return torch.where(cnt0 > 0, median, ref), 0, 0
+    in_cnt = torch.arange(n, device=dev)[:, None] < cnt0
+    sdev = torch.sort(torch.where(in_cnt, (svals - median).abs(), BIG), dim=0).values
+    std = _median_range(sdev, zero, cnt0) * 1.4826
+    lo_b = median - sigma_lo * std
+    hi_b = median + sigma_hi * std
+    below = in_cnt & (svals < lo_b)
+    above = in_cnt & (svals > hi_b)
+    keep = in_cnt & ~below & ~above
+    mean = _seqsum(torch.where(keep, svals, 0.0)) / keep.sum(0).clamp(min=1).to(torch.float32)
+    return torch.where(cnt0 > 0, mean, ref), below.sum(), above.sum()
+
+
+def stack_single_pass_plain(frames, ref_loc, sigma_lo=0.0, sigma_hi=0.0, mad=False):
+    """Plain PyTorch version of K3 (the XLA twins stack_median and
+    stack_mad_sigma of nightlight_tpu/ops/stack.py): sort along the frame
+    axis, the median of the valid prefix, and for MAD the median of the
+    sorted absolute deviations, one clip pass and the mean of the kept
+    samples summed in sorted order, pixel blocks at a time. A pixel with
+    valid samples but none kept gives 0.0. Sigmas are rounded to float32 as
+    the kernel receives them."""
+    n, p = frames.shape
+    slo = torch.tensor(float(sigma_lo), dtype=torch.float32, device=frames.device)
+    shi = torch.tensor(float(sigma_hi), dtype=torch.float32, device=frames.device)
+    outs, clo, chi = [], 0, 0
+    for s, e in _blocks(p, n):
+        o, cl, ch = _single_pass_block(frames[:, s:e], ref_loc, slo, shi, mad)
         outs.append(o)
         clo = clo + cl
         chi = chi + ch

@@ -1,16 +1,18 @@
 """Robust statistics for the stack path, in eager PyTorch.
 
 Port of the parts of nightlight_tpu/ops/stats.py that the CLI ``stack``
-command reaches at ``-lsEst 3``: min/mean/max, the quickselect-compatible
-median/quartile helpers, the sampled iteratively sigma-clipped median + Qn
-estimator (the default location/scale estimator) and the Stats object.
+command reaches: min/mean/max, the quickselect-compatible median/quartile
+helpers, the five location/scale estimators of ``-lsEst`` (mean/stddev,
+sampled median/MAD, IKSS, the sampled iteratively sigma-clipped median + Qn
+and the histogram peak) and the Stats object.
 
-The sampled estimator draws the same sample indices and roll shifts as the
-JAX package: they come from fixed ``PRNGKey(0)`` keys, reproduced bit for
-bit by ops/jaxrand.py and cached per image size. The estimator runs batched
-over frames: a (B, P) block of flattened frames gives (B,) locations and
-scales, each frame's clip loop freezing once it converges, as a vmapped
-``lax.while_loop`` does.
+The sampled estimators draw the same sample indices and roll shifts as the
+JAX package: they come from fixed ``PRNGKey`` keys, reproduced bit for bit
+by ops/jaxrand.py and cached per image size. The default estimator runs
+batched over frames: a (B, P) block of flattened frames gives (B,)
+locations and scales, each frame's clip loop freezing once it converges, as
+a vmapped ``lax.while_loop`` does. The others serve the per-frame operator
+path, one image at a time.
 """
 
 from __future__ import annotations
@@ -39,12 +41,6 @@ class LSEstimatorMode(IntEnum):
     SCMedianQn = 3
     Histogram = 4
 
-
-def _require_scmedianqn(mode) -> None:
-    if LSEstimatorMode(mode) != LSEstimatorMode.SCMedianQn:
-        raise NotImplementedError(
-            f"location/scale estimator {int(mode)} is not ported yet (the port "
-            "implements -lsEst 3; the other estimators are queued in ROADMAP.md)")
 
 
 # ---------------------------------------------------------------------------
@@ -187,6 +183,146 @@ def location_scale(flat: torch.Tensor, mn: torch.Tensor, mx: torch.Tensor):
     return sigma_clipped_median_qn(flat, 2.0, (mx - mn) / 65535.0)
 
 
+# ---------------------------------------------------------------------------
+# Sampled median / MAD (-lsEst 1)
+# ---------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=16)
+def _sample_idx(p: int, num_samples: int, seed: int) -> np.ndarray:
+    """jax.random.randint(PRNGKey(seed), (num_samples,), 0, p), read-only."""
+    idx = jaxrand.randint(jaxrand.prng_key(seed), (num_samples,), 0, p)
+    idx.setflags(write=False)
+    return idx
+
+
+def fast_approx_median(flat: torch.Tensor, num_samples: int = NUM_SAMPLES) -> torch.Tensor:
+    """Sampled median of a flat image (stats.go:336-345), the sample drawn
+    from PRNGKey(0) as the JAX package's Stats does."""
+    idx = _sample_idx(flat.shape[0], num_samples, 0)
+    return median_sorted(torch.sort(_sample(flat[None], idx)[0]).values)
+
+
+def fast_approx_mad(flat: torch.Tensor, location: torch.Tensor,
+                    num_samples: int = NUM_SAMPLES) -> torch.Tensor:
+    """Sampled median absolute deviation about `location`, Gaussian-normalised
+    (stats.go:401-410), the sample drawn from PRNGKey(1)."""
+    idx = _sample_idx(flat.shape[0], num_samples, 1)
+    s = (_sample(flat[None], idx)[0] - location).abs()
+    return median_sorted(torch.sort(s).values) * MAD_SCALE
+
+
+# ---------------------------------------------------------------------------
+# IKSS (-lsEst 2)
+# ---------------------------------------------------------------------------
+
+
+def _ss(xs: torch.Tensor, v: torch.Tensor, right: bool) -> torch.Tensor:
+    """searchsorted of the 0-d value v in the sorted 1-D xs."""
+    return torch.searchsorted(xs, v.reshape(1), right=right)[0]
+
+
+def _masked_median_absdev_sorted(xs, i, j, m, iters: int = 30):
+    """Median of |xs[i:j] - m| for sorted xs by bisecting the radius r:
+    the count within r is a difference of two searchsorted positions,
+    clamped to the window. A fixed number of bisection steps, as the JAX
+    package's fori_loop (ops/stats.py _masked_median_absdev_sorted)."""
+    cnt = (j - i).clamp(min=1)
+    half = (cnt + 1) // 2
+    lo = torch.zeros((), dtype=torch.float32, device=xs.device)
+    hi = torch.maximum((xs[j - 1] - m).abs(), (xs[i] - m).abs()) + 1e-30
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        lo_idx = torch.maximum(_ss(xs, m - mid, False), i)
+        hi_idx = torch.minimum(_ss(xs, m + mid, True), j)
+        c = (hi_idx - lo_idx).clamp(min=0)
+        ok = c >= half
+        lo, hi = torch.where(ok, lo, mid), torch.where(ok, mid, hi)
+    return hi
+
+
+def ikss(flat: torch.Tensor, epsilon: float = 1e-6):
+    """Iterative k-sigma location/scale (stats.go:535-566): sort once, then
+    shrink the active window [i, j) to median -/+ 4 sqrt(bwmv) until the
+    scale stabilises. The loop runs on the host over device scalars, one
+    read per round; a constant window gives scale 0 and stops (s <
+    epsilon), where the reference loops forever. Returns 0-d float32
+    (location, scale)."""
+    xs = torch.sort(flat.reshape(-1)).values
+    n = xs.shape[0]
+    dev = xs.device
+    idx = torch.arange(n, device=dev)
+    i = torch.zeros((), dtype=torch.int64, device=dev)
+    j = torch.full((), n, dtype=torch.int64, device=dev)
+    s0 = torch.ones((), dtype=torch.float32, device=dev)
+    while True:
+        m = xs[(i + j) // 2]
+        # biweight midvariance of xs[i:j] about m (stats.go:502-532)
+        mad = _masked_median_absdev_sorted(xs, i, j, m)
+        active = (idx >= i) & (idx < j)
+        y = (xs - m) / (9.0 * mad + 1e-30)
+        w = torch.where(active & (y > -1.0) & (y < 1.0), 1.0, 0.0)
+        xm = xs - m
+        one_m_y2 = 1.0 - y * y
+        sq = one_m_y2 * one_m_y2
+        num = torch.sum(w * xm * xm * (sq * sq))
+        den = torch.sum(w * one_m_y2 * (1.0 - 5.0 * y * y))
+        cnt = active.sum().to(torch.float32)
+        s = torch.sqrt(cnt * num / (den * den + 1e-30))
+        done_small = s < epsilon
+        done_conv = (s0 - s) < s * epsilon
+        scale = torch.where(done_small, 0.0, 0.991 * s)
+        new_i = torch.maximum(i, _ss(xs, m - 4.0 * s, False))
+        new_j = torch.minimum(j, _ss(xs, m + 4.0 * s, True))
+        if bool(done_small | done_conv | ((new_j - new_i) < 1)):
+            return m, scale
+        i, j, s0 = new_i, new_j, s
+
+
+# ---------------------------------------------------------------------------
+# Histogram peak (-lsEst 4)
+# ---------------------------------------------------------------------------
+
+
+def histogram(flat: torch.Tensor, vmin: torch.Tensor, vmax: torch.Tensor,
+              num_bins: int) -> torch.Tensor:
+    """Histogram with the reference's rounding bin map (stats.go:649-654,
+    histogram.go:33-42): bin = int((d - min) * (bins-1)/(max-min) + 0.5),
+    clamped into range. Returns int64 counts."""
+    value_to_bin = (num_bins - 1) / (vmax - vmin)
+    bins = ((flat - vmin) * value_to_bin + 0.5).to(torch.int32).clamp(0, num_bins - 1)
+    return torch.bincount(bins.reshape(-1).to(torch.int64), minlength=num_bins)
+
+
+def histogram_scale_loc(flat: torch.Tensor, vmin: torch.Tensor, vmax: torch.Tensor,
+                        num_bins: int = 4096):
+    """Histogram-peak location and the half-width of the ring of bins about
+    the peak that holds 68.27% of the pixels (stats.go:640-688), in the
+    arithmetic of the JAX package's histogram_scale_loc. Returns 0-d
+    float32 (location, scale)."""
+    bins = histogram(flat, vmin, vmax, num_bins)
+    n = flat.numel()
+    dev = flat.device
+    value_to_bin = (num_bins - 1) / (vmax - vmin)
+    peak_bin = torch.argmax(bins[1:num_bins - 1]) + 1
+    peak_count = bins[peak_bin]
+    loc = vmin + peak_bin.to(torch.float32) / value_to_bin
+    threshold = int(n * 0.6827)
+    limit = torch.minimum(peak_bin, num_bins - 1 - peak_bin)
+    i_range = torch.arange(1, num_bins, device=dev)
+    ring = torch.where(
+        i_range <= limit,
+        bins[(peak_bin - i_range).clamp(0, num_bins - 1)]
+        + bins[(peak_bin + i_range).clamp(0, num_bins - 1)], 0)
+    reached = (peak_count + torch.cumsum(ring, 0)) >= threshold
+    first = torch.argmax(reached.to(torch.int32)) + 1
+    i_eff = torch.where(peak_count >= threshold, 0,
+                        torch.where(reached.any(), torch.minimum(first, limit), limit))
+    scale = 0.5 * (2.0 * i_eff.to(torch.float32) + 1.0) / value_to_bin
+    same = vmin == vmax
+    return torch.where(same, vmin, loc), torch.where(same, 0.0, scale)
+
+
 def estimate_noise(img: torch.Tensor) -> torch.Tensor:
     """Immerkaer 1996 noise estimate of a 2D image (noise.go:32-55)."""
     d = img
@@ -327,17 +463,31 @@ class Stats:
         return self._noise
 
     def _update_location_scale(self) -> None:
-        _require_scmedianqn(self.mode)
+        """Dispatch on the estimator mode (stats.go:225-244)."""
+        mode = self.mode
         flat = self._flat()
-        if not self._have_mmm:
-            mn, me, mx = min_mean_max(flat)
-            self._min, self._mean, self._max = float(mn), float(me), float(mx)
-            self._have_mmm = True
         dev = flat.device
-        mn = torch.tensor(self._min, dtype=torch.float32, device=dev)
-        mx = torch.tensor(self._max, dtype=torch.float32, device=dev)
-        loc, scale = location_scale(flat[None], mn[None], mx[None])
-        self._location, self._scale = float(loc[0]), float(scale[0])
+        if mode == LSEstimatorMode.MeanStdDev:
+            self._location, self._scale = self.mean, self.stddev
+        elif mode == LSEstimatorMode.MedianMAD:
+            loc = fast_approx_median(flat)
+            scale = fast_approx_mad(flat, loc)
+            self._location, self._scale = float(loc), float(scale)
+        elif mode == LSEstimatorMode.IKSS:
+            loc, scale = ikss(flat)
+            self._location, self._scale = float(loc), float(scale)
+        elif mode in (LSEstimatorMode.SCMedianQn, LSEstimatorMode.Histogram):
+            self._ensure_mmm()
+            mn = torch.tensor(self._min, dtype=torch.float32, device=dev)
+            mx = torch.tensor(self._max, dtype=torch.float32, device=dev)
+            if mode == LSEstimatorMode.SCMedianQn:
+                loc, scale = location_scale(flat[None], mn[None], mx[None])
+                loc, scale = loc[0], scale[0]
+            else:
+                loc, scale = histogram_scale_loc(flat, mn, mx, 4096)
+            self._location, self._scale = float(loc), float(scale)
+        else:
+            raise ValueError(f"unknown LS estimator mode {mode}")
         self._have_locscale = True
 
     def snapshot_for_log(self) -> "_StatsSnapshot":

@@ -172,8 +172,8 @@ class OpBin(_NoopOnlyOperator):
 
 @register
 class OpStarDetect(UnaryOperator):
-    """Star detection (pre/preprocess.go:401-465). Per-frame star-image
-    saves are not ported."""
+    """Star detection with an optional star-image save (-stars)
+    (pre/preprocess.go:401-465)."""
 
     TYPE = "starDetect"
     PARAMS = {
@@ -192,10 +192,6 @@ class OpStarDetect(UnaryOperator):
             return f
         if f.stats is None:
             raise ValueError("missing stats")
-        save = self.save
-        if save is not None and getattr(save, "file_pattern", ""):
-            raise NotImplementedError("star-image saves are not ported yet "
-                                      "(queued in ROADMAP.md)")
         from nightlight_tpu_torch.detect.stars import find_stars
 
         median_diff_std = None
@@ -206,6 +202,11 @@ class OpStarDetect(UnaryOperator):
                                     self.bad_pixel_sigma, self.in_out_ratio,
                                     int(self.radius), median_diff_std)
         c.logf("%d: Stars %d HFR %.2f %s\n", f.id, f.stars.count, f.hfr, f.stats)
+        save = self.save
+        if save is not None and getattr(save, "file_pattern", ""):
+            from nightlight_tpu_torch.image import image_from_stars
+
+            save.apply(image_from_stars(f, 2.0), c)
         return f
 
 

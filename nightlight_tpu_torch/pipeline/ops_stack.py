@@ -220,25 +220,29 @@ class OpStackBatches(Operator):
         return stack_img
 
     def _batch_promises(self, batch, c: Context):
-        """The fused whole-batch preprocess followed by the rest of the
-        per-batch chain. The per-frame operator path is not ported: a batch
-        the fused executor cannot take raises with the reason."""
+        """Promise chain for one batch: the fused whole-batch preprocess
+        followed by the rest of the per-batch chain when the batch is
+        eligible, else the per-frame operator chain, with the JAX package's
+        line saying why (nightlight_tpu/pipeline/ops_stack.py)."""
         from nightlight_tpu_torch.models.fastpath import fused_batch_eligible, run_fused_preprocess
 
         if self.fused_spec is None or not self.per_batch.steps:
-            reason = self.fused_reason or "no fused preprocess for this chain"
-            raise NotImplementedError(f"the per-frame operator path is not ported yet "
-                                      f"({reason}); queued in ROADMAP.md")
+            if self.per_batch.steps and self.fused_reason:
+                c.logf("Fused batch executor off (%s); using the per-frame "
+                       "operator path.\n", self.fused_reason)
+            return self.per_batch.make_promises(batch, c)
         images, err = materialize_all(batch)
         if err is not None:
             raise err
+        wrapped = [lambda img=img: img for img in images]
         eligible, reason = fused_batch_eligible(images, c)
         if not eligible:
-            raise NotImplementedError(f"the per-frame operator path is not ported yet "
-                                      f"({reason}); queued in ROADMAP.md")
+            c.logf("Fused batch executor off (%s); using the per-frame "
+                   "operator path.\n", reason)
+            return self.per_batch.make_promises(wrapped, c)
         run_fused_preprocess(images, c, self.fused_spec)
         tail = OpSequence(steps=list(self.per_batch.steps[1:]))
-        return tail.make_promises([lambda img=img: img for img in images], c)
+        return tail.make_promises(wrapped, c)
 
     @staticmethod
     def _device_memory_mb(device: torch.device) -> int:

@@ -98,8 +98,9 @@ def test_mean_modes_and_dispatch():
     np.testing.assert_allclose(b[0].numpy(), np.asarray(a[0]), rtol=1e-6)
     for n in (1, 5, 6, 14, 15, 24, 25, 100):
         assert int(tstk.auto_select_mode(n)) == int(jstk.auto_select_mode(n))
-    with pytest.raises(NotImplementedError, match="median/MAD"):
-        tstk.stack(torch.from_numpy(f), tstk.StackMode.Median)
+    a = jstk.stack(jnp.asarray(f), jstk.StackMode.Median, ref_frame_loc=3.0)
+    b = tstk.stack(torch.from_numpy(f), tstk.StackMode.Median, ref_frame_loc=3.0)
+    np.testing.assert_array_equal(b[0].numpy(), np.asarray(a[0]))
 
 
 def test_incremental_stack():
