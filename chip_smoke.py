@@ -7,11 +7,21 @@
 2. Builds the CUDA kernels from nightlight_tpu_torch/csrc (one nvcc per
    source, all at once, sm_90a).
 3. Holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes, timing both with CUDA events (median of 5): K1 sigma
-   8 frames, K1 winsorized 16, K1 weighted sigma 10, K2 linear fit 30, K3
-   median 16 and MAD 30, all at size^2 pixels with 5% outliers and 5% NaN;
-   K4 with K=2048, r=32; K5 column and tiled and K6 tiled at 128/256/512/
-   1024 threads per block on (40, 2^21) samples, bit for bit.
+   main path's shapes, bit for bit, timing both with CUDA events (median of
+   5; kernels both as 10 calls back to back and as a single call): K1
+   sigma 8 frames, K1 winsorized 16, K1 weighted sigma 10 (also on
+   integer-valued frames, many ties), K2 linear fit 30, K3 median 16 and
+   MAD 30, all at size^2 pixels with 5% outliers and 5% NaN; K1 and K2 in
+   both designs, on chip and global scratch, timed in turns (scratch, on
+   chip, on chip, scratch); every wire-count bucket of K1 (n = 6, 15, 24,
+   32, 33, 65) and K2 (n = 25, 64, 65, 96, 128, 160, 200, 256, 300) on
+   2^20 pixels, the on-chip ones also timed against scratch in turns; K4
+   with K=2048, r=32; K5 column and tiled and K6 tiled at 128/256/512/1024
+   threads per block on (40, 2^21) samples. Each row of the kernel table
+   carries the bytes and operations of the call, counted from the shapes
+   (stack_work), its bound at 3.35 TB/s and 67 TFLOP/s float32, the share
+   of that bound, the launches per stack of step 5, and for K3's median
+   and K5 the time of the closest single PyTorch call.
 4. Writes BITPIX-16 fixtures (nightlight_tpu_torch/fixtures.py, the recipe
    of scripts/gen_fixtures.py): 30 lights and a master dark.
 5. Runs the port's CLI `stack` with -dark on the first N lights: auto mode
@@ -25,7 +35,8 @@
 6. Runs the sort-network microbenchmarks (nightlight_tpu_torch.scripts.
    microbench_layout and microbench_tile) and checks their launches and
    that every variant gives the same value.
-7. Prints the kernel table as JSON, and as the last line
+7. Prints the bucket timings, the stack walls and the kernel table as
+   JSON, and as the last line
    {"ok": true, "device": {...}}. Any failure exits non-zero before it.
 
 Exits non-zero without a result when no CUDA device is present. Logs of
@@ -39,6 +50,7 @@ import contextlib
 import glob
 import io
 import json
+import math
 import os
 import shutil
 import statistics
@@ -101,8 +113,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median of `reps` CUDA-event timings of fn() after one warm-up call."""
+def cuda_ms(fn, reps: int = 5, calls: int = 1) -> float:
+    """Milliseconds per fn() on the card: `calls` calls back to back between
+    two CUDA events, so the host enqueues ahead of the card and a wrapper's
+    host work hides behind the kernels; the median of `reps` such runs after
+    one warm-up call."""
     import torch
 
     fn()
@@ -112,28 +127,107 @@ def cuda_ms(fn, reps: int = 5) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
-def frames_with_outliers(gen, n: int, p: int, device):
+def frames_with_outliers(gen, n: int, p: int, device, integer: bool = False):
     """(n, p) float32 sky samples on the card: noise about 1000, 5% bright
-    outliers (cosmic rays / satellites), 5% missing (NaN) samples."""
+    outliers (cosmic rays / satellites), 5% missing (NaN) samples; rounded
+    to integers (the ADUs of BITPIX-16 lights, many ties) when `integer`."""
     import torch
 
     f = torch.randn((n, p), generator=gen, device=device) * 10.0 + 1000.0
     u = torch.rand((n, p), generator=gen, device=device)
     f = torch.where(u < 0.05, f + 2000.0, f)
+    if integer:
+        f = torch.round(f)
     f = torch.where((u > 0.5) & (u < 0.55), torch.full((), float("nan"), device=device), f)
     return f.contiguous()
 
 
+# calls per timed run of a kernel (cuda_ms)
+KERNEL_CALLS = 10
+
+# published peaks of one H100 SXM: HBM bytes/s and float32 operations/s
+# outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+
+
+def batcher_pairs(rows: int) -> int:
+    """Compare-exchanges of the odd-even merge network over the next power
+    of two wires at or above `rows`, padding comparators pruned (the
+    schedule of csrc/sortnet.cuh)."""
+    wires = 1
+    while wires < rows:
+        wires *= 2
+    count, p = 0, 1
+    while p < wires:
+        k = p
+        while k >= 1:
+            j = k % p
+            while j + k < wires:
+                for i in range(min(k, wires - j - k)):
+                    if (i + j) // (2 * p) == (i + j + k) // (2 * p) and i + j + k < rows:
+                        count += 1
+                j += 2 * k
+            k //= 2
+        p *= 2
+    return count
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes at the HBM rate or
+    operations at the float32 rate, whichever is longer."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_F32_S * 1e3
+    return {"bytes": int(nbytes), "ops": int(ops), "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def stack_work(kernel: str, n: int, p: int, weighted: bool = False, winsorize: bool = False,
+               mad: bool = False) -> dict:
+    """Bytes and operations of one stacking call on (n, p) frames, counted
+    from the shapes. Bytes: each frame sample read once, the result written
+    once, and the clip counts: K3 writes two int32 a pixel; for K1 and K2
+    the output is the two int64 totals (their per-warp partials are
+    intermediate). Operations per pixel: a sort of the column on the pruned
+    network (min and max per compare-exchange); for K1 4 a row to centre
+    and prefix-sum the column (7 weighted) and one clip round, 16 plus two
+    binary searches (winsorized: and one application of the fixed point, 32
+    plus two binary searches); for K2 3 a sample for the first count and
+    sums and one round, 20 plus 24 a sample; for K3 MAD a second sort and
+    the clip pass, 5 a sample. One round is the fewest a pixel runs; how
+    many more it runs depends on its data, so the bound is a floor."""
+    nbytes = 4.0 * n * p + (12.0 * p if kernel == "stack_single_pass" else 4.0 * p + 16.0)
+    sort = 2.0 * batcher_pairs(n)
+    search = 2.0 * math.ceil(math.log2(n + 1))
+    if kernel == "stack_clip":
+        extra = (7.0 if weighted else 4.0) * n + 16.0 + search
+        extra += (32.0 + search) if winsorize else 0.0
+    elif kernel == "stack_linfit":
+        extra = 3.0 * n + 20.0 + 24.0 * n
+    else:
+        extra = (sort + 5.0 * n) if mad else 0.0
+    return bound(nbytes, (sort + extra) * p)
+
+
+def kernel_ms(fn) -> dict:
+    """A wrapper's ms two ways: `ms`, KERNEL_CALLS calls back to back (the
+    card's time; the wrapper's host work hides behind the kernels), and
+    `single_call_ms`, one call between the events, which counts the
+    wrapper's host work too."""
+    return {"ms": cuda_ms(fn, calls=KERNEL_CALLS), "single_call_ms": cuda_ms(fn)}
+
+
 def kernel_cases(size: int, stack_cuda, gather_cuda, sortnet_cuda, microbench_layout):
-    """Each kernel against its plain version on the card. Returns rows for
-    the kernel table."""
+    """Each kernel against its plain version on the card. Returns the rows
+    of the kernel table and the bucket timings."""
     import torch
 
     dev = torch.device("cuda:0")
@@ -143,64 +237,147 @@ def kernel_cases(size: int, stack_cuda, gather_cuda, sortnet_cuda, microbench_la
     rows = []
     sig_lo, sig_hi, ref_loc = 2.5, 2.5, 0.0
 
-    def stack_case(name, kernel, n, run_k, run_p, exact_counts, clips):
-        ok_, clo_k, chi_k = run_k()
-        op_, clo_p, chi_p = run_p()
+    def compare(name, n, pp, got, want, exact: bool):
+        """Kernel outputs against the plain version's: bit for bit (K1, K2,
+        K3: the same float32 operations in the same order, -fmad=false) when
+        `exact`."""
+        (ok_, clo_k, chi_k), (op_, clo_p, chi_p) = got, want
         torch.cuda.synchronize()
-        err = float((ok_ - op_).abs().max())
-        rel = float(((ok_ - op_).abs() / op_.abs().clamp(min=1e-6)).max())
+        err = float((ok_ - op_).abs().max()) if pp else 0.0
         counts_k = (int(clo_k), int(chi_k))
         counts_p = (int(clo_p), int(chi_p))
-        ms = cuda_ms(run_k)
-        plain_ms = cuda_ms(run_p)
-        say(f"{name}: {n}x{p} max_abs_err {err:.3g} max_rel_err {rel:.3g} "
-            f"clips kernel {counts_k} plain {counts_p} kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
-        # band: the kernel runs the plain version's float32 arithmetic in the
-        # same order (sequential sums, no fused multiply-add), so outputs
-        # agree to float32 rounding and clip totals to within a handful of
-        # samples out of n*p (K1, K2), exactly for the single clip pass of K3
-        check(rel <= 1e-5, f"{name}: kernel vs plain relative error {rel}")
-        tol = 0 if exact_counts else max(2, int(1e-6 * n * p))
-        check(abs(counts_k[0] - counts_p[0]) <= tol and abs(counts_k[1] - counts_p[1]) <= tol,
-              f"{name}: clip totals {counts_k} vs {counts_p}")
-        check((counts_k[0] + counts_k[1] > 0) == clips, f"{name}: clip totals {counts_k}")
-        src, replaces = KERNELS[kernel]
-        rows.append({"name": name, "kernel": kernel, "route": "cuda", "source": src,
-                     "replaces": replaces, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "shape": [n, p]})
+        say(f"{name}: {n}x{pp} max_abs_err {err:.3g} clips kernel {counts_k} plain {counts_p}")
+        check(err == 0.0 and counts_k == counts_p,
+              f"{name}: kernel vs plain max abs error {err}, clips {counts_k} vs {counts_p}")
+        return err, counts_k
 
-    def clip_case(name, n, winsorize=False, weighted=False):
-        frames = frames_with_outliers(gen, n, p, dev)
-        w = (torch.rand((n,), generator=gen, device=dev) * 1.5 + 0.5) if weighted else None
-        stack_case(name, "stack_clip", n,
-                   lambda: stack_cuda.stack_sigma_cuda(frames, ref_loc, sig_lo, sig_hi, w,
-                                                       winsorize),
-                   lambda: stack_cuda.stack_sigma_plain(frames, ref_loc, sig_lo, sig_hi, w,
-                                                        winsorize),
-                   False, True)
+    def table_row(name, kernel, n, err, times, plain_ms, work, library_ms=None, **extra):
+        src, replaces = KERNELS[kernel]
+        row = {"name": name, "kernel": kernel, "route": "cuda", "source": src,
+               "replaces": replaces, "max_abs_err": err, **times, "plain_ms": plain_ms,
+               "library_ms": library_ms, "shape": [n, p], **work,
+               "share_of_bound": work["bound_ms"] / times["ms"]}
+        row.update(extra)
+        rows.append(row)
+
+    def in_turns(run):
+        """kernel_ms of the scratch and the on-chip design in turns
+        (scratch, on chip, on chip, scratch): ({key: on-chip mean}, {key:
+        scratch mean}, the four turns)."""
+        turns = [kernel_ms(lambda: run(v)) for v in ("scratch", "onchip", "onchip", "scratch")]
+        onchip = {k: (turns[1][k] + turns[2][k]) / 2 for k in turns[0]}
+        scratch = {k: (turns[0][k] + turns[3][k]) / 2 for k in turns[0]}
+        return onchip, scratch, turns
+
+    def redesigned_case(name, kernel, n, run, **shape):
+        """K1/K2 at a main-path shape: the on-chip design and the forced
+        scratch design, each held bit for bit against the plain version, then
+        timed in turns; the on-chip design must be the faster."""
+        want = run("plain")
+        err, counts = compare(name, n, p, run("onchip"), want, True)
+        compare(name + " (scratch design)", n, p, run("scratch"), want, True)
+        check(counts[0] + counts[1] > 0, f"{name}: no sample clipped")
+        onchip, scratch, turns = in_turns(run)
+        plain_ms = cuda_ms(lambda: run("plain"))
+        work = stack_work(kernel, n, p, **shape)
+        say(f"{name}: on chip {onchip['ms']:.4f} ms ({onchip['single_call_ms']:.4f} single "
+            f"call), scratch {scratch['ms']:.4f} ms ({scratch['single_call_ms']:.4f}), "
+            f"plain {plain_ms:.3f} ms, bound {work['bound_ms']:.4f} ms ({work['bound_by']})")
+        check(onchip["ms"] < scratch["ms"], f"{name}: on-chip design {onchip['ms']:.3f} ms "
+                                            f"not faster than scratch {scratch['ms']:.3f} ms")
+        table_row(name, kernel, n, err, onchip, plain_ms, work, scratch_ms=scratch["ms"],
+                  scratch_single_call_ms=scratch["single_call_ms"], turns=turns)
+
+    def clip_run(frames, w, winsorize):
+        def run(variant):
+            if variant == "plain":
+                return stack_cuda.stack_sigma_plain(frames, ref_loc, sig_lo, sig_hi, w, winsorize)
+            return stack_cuda.stack_sigma_cuda(frames, ref_loc, sig_lo, sig_hi, w, winsorize,
+                                               _force_scratch=variant == "scratch")
+        return run
+
+    def linfit_run(frames):
+        def run(variant):
+            if variant == "plain":
+                return stack_cuda.stack_linfit_plain(frames, ref_loc, sig_lo, sig_hi)
+            return stack_cuda.stack_linfit_cuda(frames, ref_loc, sig_lo, sig_hi,
+                                                _force_scratch=variant == "scratch")
+        return run
+
+    def weights_for(n):
+        return torch.rand((n,), generator=gen, device=dev) * 1.5 + 0.5
+
+    def clip_case(name, n, winsorize=False, weighted=False, integer=False):
+        frames = frames_with_outliers(gen, n, p, dev, integer)
+        redesigned_case(name, "stack_clip", n,
+                        clip_run(frames, weights_for(n) if weighted else None, winsorize),
+                        weighted=weighted, winsorize=winsorize)
 
     def linfit_case(name, n):
-        frames = frames_with_outliers(gen, n, p, dev)
-        stack_case(name, "stack_linfit", n,
-                   lambda: stack_cuda.stack_linfit_cuda(frames, ref_loc, sig_lo, sig_hi),
-                   lambda: stack_cuda.stack_linfit_plain(frames, ref_loc, sig_lo, sig_hi),
-                   False, True)
+        redesigned_case(name, "stack_linfit", n, linfit_run(frames_with_outliers(gen, n, p, dev)))
 
     def single_pass_case(name, n, mad):
         frames = frames_with_outliers(gen, n, p, dev)
-        stack_case(name, "stack_single_pass", n,
-                   lambda: stack_cuda.stack_single_pass_cuda(frames, ref_loc, sig_lo, sig_hi,
-                                                             mad),
-                   lambda: stack_cuda.stack_single_pass_plain(frames, ref_loc, sig_lo,
-                                                              sig_hi, mad),
-                   True, mad)
+
+        def run_k():
+            return stack_cuda.stack_single_pass_cuda(frames, ref_loc, sig_lo, sig_hi, mad)
+
+        def run_p():
+            return stack_cuda.stack_single_pass_plain(frames, ref_loc, sig_lo, sig_hi, mad)
+
+        err, counts = compare(name, n, p, run_k(), run_p(), True)
+        check((counts[0] + counts[1] > 0) == mad, f"{name}: clip totals {counts}")
+        times = kernel_ms(run_k)
+        plain_ms = cuda_ms(run_p)
+        # the one PyTorch call closest to the median: nanquantile, which
+        # differs in the last bit of the even-count average and gives NaN
+        # for an empty column
+        library_ms = None if mad else cuda_ms(lambda: torch.nanquantile(frames, 0.5, dim=0),
+                                              calls=KERNEL_CALLS)
+        work = stack_work("stack_single_pass", n, p, mad=mad)
+        say(f"{name}: kernel {times['ms']:.3f} ms ({times['single_call_ms']:.3f} single call) "
+            f"plain {plain_ms:.3f} ms library {library_ms} ms bound {work['bound_ms']:.3f} ms")
+        table_row(name, "stack_single_pass", n, err, times, plain_ms, work, library_ms)
 
     clip_case("stack_clip sigma", 8)
     clip_case("stack_clip winsorized", 16, winsorize=True)
     clip_case("stack_clip weighted sigma", 10, weighted=True)
+    clip_case("stack_clip weighted sigma, integer frames", 10, weighted=True, integer=True)
     linfit_case("stack_linfit", 30)
     single_pass_case("stack_single_pass median", 16, False)
     single_pass_case("stack_single_pass mad", 30, True)
+    torch.cuda.empty_cache()
+
+    # every template bucket of K1/K2 and frame counts between them, and the
+    # scratch design above the on-chip limit, on 2^20 pixels: bit for bit
+    # against the plain version, and where the plan picks the on-chip design,
+    # timed against the scratch design in turns (the cut-overs' evidence)
+    pb = 1 << 20
+    buckets = []
+
+    def bucket(name, kernel, n, run, plan):
+        want = run("plain")
+        label = f"bucket {name} n={n} {plan.variant} wires={plan.wires} threads={plan.threads}"
+        compare(label, n, pb, run("onchip"), want, True)
+        row = {"kernel": kernel, "case": name, "n": n, "pixels": pb, **plan._asdict()}
+        if plan.variant == "onchip":
+            compare(label + " (scratch design)", n, pb, run("scratch"), want, True)
+            onchip, scratch, _ = in_turns(run)
+            row.update(onchip_ms=onchip["ms"], scratch_ms=scratch["ms"])
+            say(f"{label}: on chip {onchip['ms']:.4f} ms, scratch {scratch['ms']:.4f} ms")
+        buckets.append(row)
+
+    for n in (6, 15, 24, 32, 33, 65):
+        frames = frames_with_outliers(gen, n, pb, dev, integer=n % 2 == 1)
+        w = weights_for(n)
+        for name, winsorize, weights in (("stack_clip sigma", False, None),
+                                         ("stack_clip winsorized weighted", True, w)):
+            bucket(name, "stack_clip", n, clip_run(frames, weights, winsorize),
+                   stack_cuda._clip_plan(n, pb, weights is not None))
+    for n in (25, 64, 65, 96, 128, 160, 200, 256, 300):
+        bucket("stack_linfit", "stack_linfit", n,
+               linfit_run(frames_with_outliers(gen, n, pb, dev, integer=n % 2 == 1)),
+               stack_cuda._linfit_plan(n, pb))
     torch.cuda.empty_cache()
 
     # K4 on a size^2 frame, K = 2048 candidates, r = 32 (65x65 windows)
@@ -213,22 +390,31 @@ def kernel_cases(size: int, stack_cuda, gather_cuda, sortnet_cuda, microbench_la
     torch.cuda.synchronize()
     check(bool((ok_k == ok_p).all()), "gather_patches: in-frame masks differ")
     err = float(torch.where(ok_k, (pk - pp).abs(), torch.zeros((), device=dev)).max())
-    ms = cuda_ms(lambda: gather_cuda.gather_patches_cuda(img, cys, cxs, 32))
+    times = kernel_ms(lambda: gather_cuda.gather_patches_cuda(img, cys, cxs, 32))
     plain_ms = cuda_ms(lambda: gather_cuda.patches_plain(img, cys, cxs, 32))
+    # each window read once and written once, the centres read, the mask
+    # written; a gather does no arithmetic
+    work = bound(2.0 * k * 65 * 65 * 4 + k * (8 + 1), 0.0)
     say(f"gather_patches: K={k} r=32 on {size}x{size} max_abs_err {err:.3g} (where ok) "
-        f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
+        f"kernel {times['ms']:.3f} ms ({times['single_call_ms']:.3f} single call) "
+        f"plain {plain_ms:.3f} ms bound {work['bound_ms']:.4f} ms")
     check(err == 0.0, f"gather_patches: kernel vs plain error {err}")
     src, replaces = KERNELS["gather_patches"]
     rows.append({"name": "gather_patches", "kernel": "gather_patches", "route": "cuda",
                  "source": src, "replaces": replaces, "max_abs_err": err,
-                 "ms": ms, "plain_ms": plain_ms, "shape": [k, 65, 65]})
+                 **times, "plain_ms": plain_ms, "library_ms": None, "shape": [k, 65, 65],
+                 **work, "share_of_bound": work["bound_ms"] / times["ms"]})
 
     # K5 (column, tiled) and K6 (tiled over the block sizes) on the
     # microbenchmarks' (40, 2^21) input; exact sort and the same row-order
-    # sum, so bit for bit
+    # sum, so bit for bit. The closest PyTorch call is x.sum(0): the input
+    # has no 3.0e38 entry, so it is the same sum up to float order.
     x = microbench_layout.make_input(microbench_layout.P, 0, dev)
     ref = sortnet_cuda.sort_sum_plain(x)
     plain_ms = cuda_ms(lambda: sortnet_cuda.sort_sum_plain(x))
+    library_ms = cuda_ms(lambda: x.sum(0), calls=KERNEL_CALLS)
+    px = int(x.shape[1])
+    work = bound(4.0 * 40 * px + 4.0 * px, (2.0 * batcher_pairs(40) + 39) * px)
     cases = [("sort_sum column", "column", 256, SORT_REPLACES["column"]),
              ("sort_sum tiled", "tiled", 256, SORT_REPLACES["tiled"])]
     cases += [(f"sort_sum tiled tile={t}", "tiled", t, SORT_REPLACES["sweep"])
@@ -237,14 +423,16 @@ def kernel_cases(size: int, stack_cuda, gather_cuda, sortnet_cuda, microbench_la
         out = sortnet_cuda.sort_sum_cuda(x, layout, threads)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
-        ms = cuda_ms(lambda: sortnet_cuda.sort_sum_cuda(x, layout, threads))
-        say(f"{name}: 40x{x.shape[1]} max_abs_err {err:.3g} kernel {ms:.4f} ms "
-            f"plain {plain_ms:.3f} ms")
+        times = kernel_ms(lambda: sortnet_cuda.sort_sum_cuda(x, layout, threads))
+        say(f"{name}: 40x{px} max_abs_err {err:.3g} kernel {times['ms']:.4f} ms "
+            f"({times['single_call_ms']:.4f} single call) "
+            f"plain {plain_ms:.3f} ms library {library_ms:.4f} ms bound {work['bound_ms']:.4f} ms")
         check(torch.equal(out, ref), f"{name}: kernel differs from plain (max abs {err})")
         rows.append({"name": name, "kernel": "sort_sum", "route": "cuda", "source": SORT_SRC,
-                     "replaces": replaces, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "shape": [40, int(x.shape[1])], "threads": threads})
-    return rows
+                     "replaces": replaces, "max_abs_err": err, **times, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "shape": [40, px], "threads": threads,
+                     **work, "share_of_bound": work["bound_ms"] / times["ms"]})
+    return rows, buckets
 
 
 def write_log(name: str, text: str) -> None:
@@ -352,7 +540,7 @@ def main() -> int:
     if ptxas:
         write_log("ptxas.txt", ptxas)
 
-    rows = kernel_cases(opts.size, stack_cuda, gather_cuda, sortnet_cuda, microbench_layout)
+    rows, buckets = kernel_cases(opts.size, stack_cuda, gather_cuda, sortnet_cuda, microbench_layout)
     torch.cuda.empty_cache()
 
     size = opts.size
@@ -360,6 +548,7 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="smoke-", dir=os.path.join(ROOT, "build"))
     cwd = os.getcwd()
     totals = {name: 0 for name in kernels.KERNEL_NAMES}
+    per_stack = {}
     walls = {}
     try:
         t0 = time.perf_counter()
@@ -376,6 +565,7 @@ def main() -> int:
             counts = kernels.launch_counts()
             for k, v in counts.items():
                 totals[k] += v
+            per_stack[name] = counts
             walls[name] = seconds
             peak = torch.cuda.max_memory_allocated() / (1 << 30)
             notes = [ln for ln in log.splitlines()
@@ -411,8 +601,12 @@ def main() -> int:
     check(counts["sort_sum"] > 0, "microbenchmarks: sort_sum never launched")
     totals["sort_sum"] += counts["sort_sum"]
 
+    per_stack["microbench"] = {"sort_sum": counts["sort_sum"]}
     for row in rows:
         row["launches"] = totals[row["kernel"]]
+        row["launches_per_stack"] = {name: c[row["kernel"]] for name, c in per_stack.items()
+                                     if c.get(row["kernel"], 0) > 0}
+    say(json.dumps({"buckets": buckets}))
     say(json.dumps({"stack_walls_s": walls}))
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -287,7 +287,8 @@ is an independent rebuild.
 
 
 def main(argv=None, device=None) -> int:
-    """Run the CLI; `device` overrides the default (cuda:0 when present)."""
+    """Run the CLI on `device` (default cuda:0). Without a CUDA device it
+    raises unless the caller passes device="cpu"."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     parser = build_parser()
@@ -313,30 +314,36 @@ def main(argv=None, device=None) -> int:
     if not cmd:
         parser.print_usage()
         return 0
-    if cmd in ("stats", "stack", "stretch", "rgb", "lrgb"):
+    pipeline = cmd in ("stats", "stack", "stretch", "rgb", "lrgb")
+    if pipeline:
         log_writer.write(f"Using location and scale estimator {args.lsEst}\n")
 
     apply_command_defaults(args)
 
     from nightlight_tpu_torch.pipeline import operators as opmod
-    from nightlight_tpu_torch.pipeline.context import new_context
+    from nightlight_tpu_torch.pipeline.context import default_device, new_context
 
+    # only the commands that build a pipeline need the card; resolved
+    # outside the error report below: a missing card is the caller's fault,
+    # not a failed command
+    if pipeline:
+        device = torch.device(device) if device is not None else default_device()
     if args.allowAbsolutePaths:
         opmod.ALLOW_ABSOLUTE_PATHS = True
 
     profiler = None
     try:
-        c = new_context(log=log_writer, st_memory=args.stMemory,
-                        ls_mode=LSEstimatorMode(args.lsEst), device=device)
         if args.shard:
             raise NotImplementedError("-shard is not ported yet (queued in ROADMAP.md)")
-        if args.trace:
-            activities = [torch.profiler.ProfilerActivity.CPU]
-            if c.device.type == "cuda":
-                activities.append(torch.profiler.ProfilerActivity.CUDA)
-            profiler = torch.profiler.profile(activities=activities)
-            profiler.__enter__()
-        if cmd in ("stats", "stack", "stretch", "rgb", "lrgb"):
+        if pipeline:
+            c = new_context(log=log_writer, st_memory=args.stMemory,
+                            ls_mode=LSEstimatorMode(args.lsEst), device=device)
+            if args.trace:
+                activities = [torch.profiler.ProfilerActivity.CPU]
+                if c.device.type == "cuda":
+                    activities.append(torch.profiler.ProfilerActivity.CUDA)
+                profiler = torch.profiler.profile(activities=activities)
+                profiler.__enter__()
             run_op(build_command_seq(args), c)
         elif cmd in ("run", "serve"):
             raise NotImplementedError(f"the '{cmd}' command is not ported yet "

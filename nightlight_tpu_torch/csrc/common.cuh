@@ -26,6 +26,19 @@ struct Column {
     }
 };
 
+// One pixel's column in a [row][thread] block of shared memory: element i
+// of thread t at base[i * stride + t], so the lanes of a warp hit distinct
+// banks at any row. Host-callable too, so the run-time network loop of
+// sortnet.cuh (a __host__ __device__ template) may call compare-exchanges
+// on it.
+struct SharedColumn {
+    float* base;
+    int stride;
+    __host__ __device__ __forceinline__ float& operator[](int i) const {
+        return base[i * stride];
+    }
+};
+
 struct ByteColumn {
     uint8_t* base;
     long long stride;
@@ -48,6 +61,21 @@ __device__ __forceinline__ void insertion_sort(Column v, Column* w, int n) {
         }
         v[j + 1] = key;
         if (w) (*w)[j + 1] = wk;
+    }
+}
+
+// Writes the sums over the warp of its lanes' low/high clip counts to
+// partials[2w] and partials[2w + 1], w the warp's index in the launch; the
+// wrapper adds the partials up. (An atomic per warp into two totals instead
+// queues 2^19 atomics on each of two addresses at 16.8 MP.) Every lane of
+// the warp calls it (a lane past the last pixel with zero counts).
+__device__ __forceinline__ void write_clip_partials(int lo, int hi, int* partials) {
+    lo = __reduce_add_sync(0xffffffffu, lo);
+    hi = __reduce_add_sync(0xffffffffu, hi);
+    if ((threadIdx.x & 31) == 0) {
+        long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+        partials[2 * w] = lo;
+        partials[2 * w + 1] = hi;
     }
 }
 

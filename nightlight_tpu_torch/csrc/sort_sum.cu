@@ -13,8 +13,8 @@
 // comparator that touches a padding wire (index >= 40) dropped: a padding
 // row is +3.0e38 and never moves below a real one, so the 305 remaining
 // compare-exchanges sort the 40 real values (the pruning of stack_pallas.py
-// _sortnet_rows). The comparator list is generated at compile time and
-// unrolled, so each index is a constant.
+// _sortnet_rows). The comparator list comes from the shared schedule of
+// sortnet.cuh at compile time and is unrolled, so each index is a constant.
 //
 // Two layouts, the GPU counterparts of the TPU row layouts:
 //   * column (layout 0): one thread per pixel holds its 40 values in
@@ -33,51 +33,31 @@
 // G operations in all. The column layout keeps the network in registers
 // and should sit near the memory bound; the tiled layout adds 4 shared
 // accesses per compare-exchange.
-#include <utility>
-
 #include "common.cuh"
+#include "sortnet.cuh"
 
 namespace {
 
 constexpr int kRows = 40;
 constexpr int kWires = 64;
+static_assert(sortnet::count_pairs(kWires, kRows) == 305, "pruned Batcher network for 40 rows");
 
-// The idx-th kept comparator (its lower wire when lower, else its upper
-// wire) of the iterative Batcher odd-even merge sort over kWires wires,
-// keeping comparators whose upper wire is below kRows; idx = -1 counts them.
-__host__ __device__ constexpr int batcher_pair(int idx, bool lower) {
-    int count = 0;
-    for (int p = 1; p < kWires; p <<= 1) {
-        for (int k = p; k >= 1; k >>= 1) {
-            for (int j = k % p; j + k < kWires; j += 2 * k) {
-                int lim = k < kWires - j - k ? k : kWires - j - k;
-                for (int i = 0; i < lim; ++i) {
-                    if ((i + j) / (2 * p) != (i + j + k) / (2 * p)) continue;
-                    if (i + j + k >= kRows) continue;
-                    if (count == idx) return lower ? i + j : i + j + k;
-                    ++count;
-                }
-            }
-        }
+// value-only compare-exchange: min to the lower wire
+template <typename V>
+struct MinMax {
+    V& v;
+    template <int a, int b>
+    __device__ __forceinline__ void apply() {
+        float x = v[a], y = v[b];
+        v[a] = fminf(x, y);
+        v[b] = fmaxf(x, y);
     }
-    return count;
-}
+};
 
-constexpr int kPairs = batcher_pair(-1, true);
-static_assert(kPairs == 305, "pruned Batcher network for 40 rows");
-
-template <typename V, int I>
-__device__ __forceinline__ void compare_exchange(V& v) {
-    constexpr int a = batcher_pair(I, true);
-    constexpr int b = batcher_pair(I, false);
-    float x = v[a], y = v[b];
-    v[a] = fminf(x, y);
-    v[b] = fmaxf(x, y);
-}
-
-template <typename V, int... I>
-__device__ __forceinline__ void sort_network(V& v, std::integer_sequence<int, I...>) {
-    (compare_exchange<V, I>(v), ...);
+template <typename V>
+__device__ __forceinline__ void sort_network(V& v) {
+    MinMax<V> ce{v};
+    sortnet::run<kWires, kRows>(ce);
 }
 
 template <typename V>
@@ -96,12 +76,6 @@ struct Regs {
     __device__ __forceinline__ float& operator[](int i) { return r[i]; }
 };
 
-struct SharedColumn {
-    float* base;
-    int stride;
-    __device__ __forceinline__ float& operator[](int i) { return base[i * stride]; }
-};
-
 __global__ void sort_sum_column_kernel(const float* __restrict__ x, long long P,
                                        float* __restrict__ out) {
     long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -109,7 +83,7 @@ __global__ void sort_sum_column_kernel(const float* __restrict__ x, long long P,
     Regs v;
 #pragma unroll
     for (int i = 0; i < kRows; ++i) v[i] = x[(long long)i * P + p];
-    sort_network(v, std::make_integer_sequence<int, kPairs>{});
+    sort_network(v);
     out[p] = sorted_sum(v);
 }
 
@@ -120,10 +94,10 @@ __global__ void sort_sum_tiled_kernel(const float* __restrict__ x, long long P,
     if (p >= P) return;
     // each thread stages and sorts only its own column of the tile, so the
     // block needs no barrier
-    SharedColumn v{tile + threadIdx.x, (int)blockDim.x};
+    nl::SharedColumn v{tile + threadIdx.x, (int)blockDim.x};
 #pragma unroll
     for (int i = 0; i < kRows; ++i) v[i] = x[(long long)i * P + p];
-    sort_network(v, std::make_integer_sequence<int, kPairs>{});
+    sort_network(v);
     out[p] = sorted_sum(v);
 }
 

@@ -11,6 +11,14 @@ for missing samples and return ``(stacked (P,), clip_lo, clip_hi)`` with the
 clip totals as 0-d int64 tensors (30 frames x 16.8 MP already holds 5e8
 samples; a larger batch passes 2^31).
 
+K1 and K2 each have two CUDA designs, picked by the frame count alone
+(``_clip_plan``, ``_linfit_plan``): the column on chip (registers and shared
+memory, one launch over all pixels) up to 32 frames for K1 and 256 for K2,
+and the first design of the port, the column in global scratch launched in
+pixel chunks, above that. The limits are where the on-chip design stopped
+beating the scratch design on the card (chip_smoke.py times both at every
+bucket).
+
 A wrapper runs the plain version only for a tensor on the CPU. A CUDA tensor
 goes to the kernel, or the wrapper raises.
 """
@@ -18,6 +26,7 @@ goes to the kernel, or the wrapper raises.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -31,6 +40,31 @@ _PLAIN_ELEMS = 1 << 25
 # the kernels' per-pixel scratch (3-6x the frames) stays within this beside
 # a batch the memory solver sized to fill the card
 SCRATCH_BYTES = 2 << 30
+# H100 shared memory: per SM, the most one block may take, and what the
+# runtime reserves per block
+SM_SHARED_BYTES = 233_472
+BLOCK_SHARED_BYTES = 232_448
+BLOCK_RESERVED_BYTES = 1_024
+# wire counts of the on-chip kernels (csrc/stack_clip.cu, csrc/stack_linfit.cu)
+CLIP_WIRES = (8, 16, 32)
+LINFIT_WIRES = (32, 64, 128, 256)
+# threads per block of the on-chip kernels, in order of preference: blocks
+# of two warps let a kernel of many registers per thread fill an SM in fine
+# steps (K2 at 32 wires, about 90 registers a thread: 2 blocks of 256
+# threads fit an SM's registers, or 11 of 64, i.e. 16 or 22 warps)
+_THREADS = (64, 32)
+
+
+class Plan(NamedTuple):
+    """How a wrapper launches a kernel: the design ("onchip" or "scratch"),
+    the sorting network's wires (0 for scratch), threads per block, dynamic
+    shared memory per block, and pixels per launch."""
+
+    variant: str
+    wires: int
+    threads: int
+    smem_bytes: int
+    pixels_per_launch: int
 
 
 def _check_frames(frames: torch.Tensor, name: str) -> None:
@@ -52,6 +86,72 @@ def _chunk_pixels(p: int, scratch_bytes_per_pixel: int) -> int:
     return max(1, min(p, max(1 << 18, SCRATCH_BYTES // scratch_bytes_per_pixel)))
 
 
+def _grid_warps(pixels: int, threads: int) -> int:
+    """Warps of a launch of one thread a pixel."""
+    return -(-pixels // threads) * threads // 32
+
+
+def _clip_partials(plan: Plan, p: int, device):
+    """Room for the per-warp (low, high) clip count sums that K1/K2 write
+    (csrc/common.cuh write_clip_partials), and the launches of `plan` over
+    p pixels: (partials, [(first pixel, pixels, first warp), ...])."""
+    if plan.variant == "onchip":
+        launches = [(0, p, 0)] if p > 0 else []
+        warps = _grid_warps(p, plan.threads)
+    else:
+        launches, warps = [], 0
+        for s in range(0, p, plan.pixels_per_launch):
+            q = min(plan.pixels_per_launch, p - s)
+            launches.append((s, q, warps))
+            warps += _grid_warps(q, plan.threads)
+    return torch.empty((warps, 2), dtype=torch.int32, device=device), launches
+
+
+def _clip_totals(partials: torch.Tensor):
+    totals = torch.sum(partials, dim=0, dtype=torch.int64)
+    return totals[0], totals[1]
+
+
+def _onchip_plan(n: int, p: int, wires_choices, bytes_per_thread) -> Plan | None:
+    """The on-chip launch for n frames: the fewest wires that hold them, and
+    the first of _THREADS for which two blocks fit an SM's shared memory;
+    None when n is past the largest network."""
+    wires = next((w for w in wires_choices if n >= 1 and w >= n), None)
+    if wires is None:
+        return None
+    per_thread = bytes_per_thread(wires)
+    for threads in _THREADS:
+        smem = threads * per_thread
+        if 2 * (smem + BLOCK_RESERVED_BYTES) <= SM_SHARED_BYTES:
+            return Plan("onchip", wires, threads, smem, p)
+    return None
+
+
+def _clip_plan(n: int, p: int, weighted: bool, force_scratch: bool = False) -> Plan:
+    """K1's launch for (n, p) frames: on chip up to 32 frames (rows of 4
+    bytes per thread in shared memory: the column and its prefix sums, 3n+2
+    or weighted 5n+4), else global scratch of 3n+2 (weighted 6n+4) rows in
+    pixel chunks."""
+    rows = 5 * n + 4 if weighted else 3 * n + 2
+    plan = None if force_scratch else _onchip_plan(n, p, CLIP_WIRES, lambda wires: 4 * rows)
+    if plan is not None:
+        return plan
+    scratch_rows = 6 * n + 4 if weighted else 3 * n + 2
+    return Plan("scratch", 0, 256, 0, _chunk_pixels(p, scratch_rows * 4))
+
+
+def _linfit_plan(n: int, p: int, force_scratch: bool = False) -> Plan:
+    """K2's launch for (n, p) frames: on chip up to 256 frames (in registers
+    up to 64 wires; above, the sorted column in shared memory, 4n bytes per
+    thread), else global scratch of n float and n byte rows in pixel
+    chunks."""
+    plan = None if force_scratch else _onchip_plan(
+        n, p, LINFIT_WIRES, lambda wires: 4 * n if wires > 64 else 0)
+    if plan is not None:
+        return plan
+    return Plan("scratch", 0, 256, 0, _chunk_pixels(p, n * 5))
+
+
 # ---------------------------------------------------------------------------
 # K1: sigma / winsorized clip
 # ---------------------------------------------------------------------------
@@ -67,7 +167,10 @@ def stack_sigma(frames: torch.Tensor, ref_loc: float, sigma_lo: float, sigma_hi:
     return stack_sigma_cuda(frames, ref_loc, sigma_lo, sigma_hi, weights, winsorize)
 
 
-def stack_sigma_cuda(frames, ref_loc, sigma_lo, sigma_hi, weights=None, winsorize=False):
+def stack_sigma_cuda(frames, ref_loc, sigma_lo, sigma_hi, weights=None, winsorize=False,
+                     _force_scratch=False):
+    """K1 on the card; `_force_scratch` launches the global-scratch design
+    whatever n is, so a measurement can set the two designs side by side."""
     kernels.require_cuda(frames, "stack_sigma", torch.float32)
     n, p = frames.shape
     if weights is not None:
@@ -75,22 +178,30 @@ def stack_sigma_cuda(frames, ref_loc, sigma_lo, sigma_hi, weights=None, winsoriz
         if tuple(weights.shape) != (n,):
             raise ValueError(f"stack_sigma: weights shape {tuple(weights.shape)} != ({n},)")
     lib = kernels.library()
-    rows = (6 * n + 4) if weights is not None else (3 * n + 2)
-    q = _chunk_pixels(p, rows * 4)
-    scratch = torch.empty((rows, q), dtype=torch.float32, device=frames.device)
+    plan = _clip_plan(n, p, weights is not None, _force_scratch)
     out = torch.empty(p, dtype=torch.float32, device=frames.device)
-    clips = torch.empty((2, p), dtype=torch.int32, device=frames.device)
+    partials, launches = _clip_partials(plan, p, frames.device)
     stream = kernels.stream_handle(frames.device)
-    for s in range(0, p, q):
-        err = lib.nl_stack_clip(
-            frames.data_ptr() + 4 * s, weights.data_ptr() if weights is not None else None,
-            n, p, min(q, p - s), float(sigma_lo), float(sigma_hi), float(ref_loc),
-            int(bool(winsorize)), scratch.data_ptr(), out.data_ptr() + 4 * s,
-            clips.data_ptr() + 4 * s, stream)
-        kernels.check(err, "stack_clip")
-        kernels.count_launch("stack_clip")
-    totals = torch.sum(clips, dim=1, dtype=torch.int64)
-    return out, totals[0], totals[1]
+    w_ptr = weights.data_ptr() if weights is not None else None
+    args = (float(sigma_lo), float(sigma_hi), float(ref_loc), int(bool(winsorize)))
+    if plan.variant == "onchip":
+        if launches:
+            err = lib.nl_stack_clip_onchip(frames.data_ptr(), w_ptr, n, p, *args, plan.wires,
+                                           plan.threads, plan.smem_bytes, out.data_ptr(),
+                                           partials.data_ptr(), stream)
+            kernels.check(err, "stack_clip")
+            kernels.count_launch("stack_clip")
+    else:
+        rows = 6 * n + 4 if weights is not None else 3 * n + 2
+        scratch = torch.empty((rows, plan.pixels_per_launch), dtype=torch.float32,
+                              device=frames.device)
+        for s, q, w in launches:
+            err = lib.nl_stack_clip(frames.data_ptr() + 4 * s, w_ptr, n, p, q, *args,
+                                    scratch.data_ptr(), out.data_ptr() + 4 * s,
+                                    partials.data_ptr() + 8 * w, stream)
+            kernels.check(err, "stack_clip")
+            kernels.count_launch("stack_clip")
+    return (out, *_clip_totals(partials))
 
 
 def _take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -337,25 +448,35 @@ def stack_linfit(frames: torch.Tensor, ref_loc: float, sigma_lo: float, sigma_hi
     return stack_linfit_cuda(frames, ref_loc, sigma_lo, sigma_hi)
 
 
-def stack_linfit_cuda(frames, ref_loc, sigma_lo, sigma_hi):
+def stack_linfit_cuda(frames, ref_loc, sigma_lo, sigma_hi, _force_scratch=False):
+    """K2 on the card; `_force_scratch` as in stack_sigma_cuda."""
     kernels.require_cuda(frames, "stack_linfit", torch.float32)
     n, p = frames.shape
     lib = kernels.library()
-    q = _chunk_pixels(p, n * 5)
-    scratch_v = torch.empty((n, q), dtype=torch.float32, device=frames.device)
-    scratch_a = torch.empty((n, q), dtype=torch.uint8, device=frames.device)
+    plan = _linfit_plan(n, p, _force_scratch)
     out = torch.empty(p, dtype=torch.float32, device=frames.device)
-    clips = torch.empty((2, p), dtype=torch.int32, device=frames.device)
+    partials, launches = _clip_partials(plan, p, frames.device)
     stream = kernels.stream_handle(frames.device)
-    for s in range(0, p, q):
-        err = lib.nl_stack_linfit(
-            frames.data_ptr() + 4 * s, n, p, min(q, p - s), float(sigma_lo),
-            float(sigma_hi), float(ref_loc), scratch_v.data_ptr(), scratch_a.data_ptr(),
-            out.data_ptr() + 4 * s, clips.data_ptr() + 4 * s, stream)
-        kernels.check(err, "stack_linfit")
-        kernels.count_launch("stack_linfit")
-    totals = torch.sum(clips, dim=1, dtype=torch.int64)
-    return out, totals[0], totals[1]
+    args = (float(sigma_lo), float(sigma_hi), float(ref_loc))
+    if plan.variant == "onchip":
+        if launches:
+            err = lib.nl_stack_linfit_onchip(frames.data_ptr(), n, p, *args, plan.wires,
+                                             plan.threads, plan.smem_bytes, out.data_ptr(),
+                                             partials.data_ptr(), stream)
+            kernels.check(err, "stack_linfit")
+            kernels.count_launch("stack_linfit")
+    else:
+        q = plan.pixels_per_launch
+        scratch_v = torch.empty((n, q), dtype=torch.float32, device=frames.device)
+        scratch_a = torch.empty((n, q), dtype=torch.uint8, device=frames.device)
+        for s, q, w in launches:
+            err = lib.nl_stack_linfit(frames.data_ptr() + 4 * s, n, p, q, *args,
+                                      scratch_v.data_ptr(), scratch_a.data_ptr(),
+                                      out.data_ptr() + 4 * s, partials.data_ptr() + 8 * w,
+                                      stream)
+            kernels.check(err, "stack_linfit")
+            kernels.count_launch("stack_linfit")
+    return (out, *_clip_totals(partials))
 
 
 def _linfit_block(f, ref_loc, sigma_lo, sigma_hi):

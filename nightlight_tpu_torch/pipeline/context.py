@@ -32,8 +32,12 @@ def total_memory_mb() -> int:
 
 
 def default_device() -> torch.device:
-    """cuda:0 when a GPU is present, else the CPU."""
-    return torch.device("cuda:0" if torch.cuda.is_available() else "cpu")
+    """cuda:0. Raises when no CUDA device is present: the port runs on the
+    card, and the CPU (the kernels' plain versions) only when a caller asks
+    for it by passing device="cpu"."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is present; pass device='cpu' to run on the CPU")
+    return torch.device("cuda:0")
 
 
 @dataclass
@@ -43,7 +47,7 @@ class Context:
     memory_mb: int = 0
     stack_memory_mb: int = 0
     max_threads: int = 0
-    device: torch.device = field(default_factory=lambda: torch.device("cpu"))
+    device: torch.device = field(default_factory=default_device)
 
     dark_frame: Any = None  # Image
     flat_frame: Any = None  # Image
@@ -109,7 +113,7 @@ def new_context(log=None, st_memory: int = 0,
                 ls_mode: LSEstimatorMode = LSEstimatorMode.SCMedianQn,
                 device=None) -> Context:
     """ops.NewContext equivalent (operator.go:58-67) on `device` (default:
-    cuda:0 when present)."""
+    cuda:0, which must be present)."""
     return Context(log=log or sys.stdout, ls_estimator_mode=ls_mode,
                    stack_memory_mb=st_memory,
                    device=device if device is not None else default_device())

@@ -1,0 +1,205 @@
+"""Where the wall of a CLI `stack` goes, phase by phase, on an NVIDIA GPU.
+
+Runs the port's CLI `stack` on the fixtures of nightlight_tpu_torch/
+fixtures.py (BITPIX-16 lights and a master dark, seed 7) in its auto mode
+at 30, 16 and 8 lights (linear fit, winsorized and sigma clip, each with
+its goal-seek), the flags of chip_smoke.py. Each configuration runs
+`--warmup` times, then once measured with every phase function wrapped:
+the wrapper synchronises the card on entry and exit and books the time
+to its phase, less the time of phases nested inside it (star detection
+inside the fused preprocess, for example). "rest" is the wall less every
+phase: operator dispatch, reference selection, histogram match and the
+host work between phases.
+
+    python -m nightlight_tpu_torch.scripts.phase_split [--size 4096] [--warmup 2] \
+        [--out FILE --tag TEXT]
+    python -m nightlight_tpu_torch.scripts.phase_split --summarise FILE
+
+Prints one JSON line per configuration: the wall, the seconds of each
+phase, and the kernel launches of the measured run; with --out it also
+appends each line to FILE, marked with --tag. The synchronisations add
+their own waits, so the phases sum to a wall slightly above an unwrapped
+run's.
+
+To compare two trees, run this script from each in turns (A, B, B, A, ...)
+with --out to one file and the tags "A:<i>" and "B:<i>", i the index of
+the pair; --summarise then prints, per configuration and phase, each
+side's median and quartiles and in how many pairs B was the faster.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import functools
+import importlib
+import io
+import json
+import os
+import shutil
+import statistics
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+from nightlight_tpu_torch import cli, fixtures, kernels
+
+# phase -> (module, attribute path) of each function booked to it
+PHASES = {
+    "load (FITS read, H2D, decode)": [("nightlight_tpu_torch.io.fits", "read_file")],
+    "fused preprocess": [("nightlight_tpu_torch.models.fastpath", "run_fused_preprocess")],
+    "star detection": [("nightlight_tpu_torch.detect.stars", "find_stars_batch"),
+                       ("nightlight_tpu_torch.detect.stars", "find_stars")],
+    "align": [("nightlight_tpu_torch.align.aligner", "Aligner.align_batch"),
+              ("nightlight_tpu_torch.align.aligner", "Aligner.align_one")],
+    "warp": [("nightlight_tpu_torch.ops.resample", "warp_shift_batch"),
+             ("nightlight_tpu_torch.ops.resample", "project")],
+    "stack (goal-seek + kernels)": [("nightlight_tpu_torch.ops.findsigma",
+                                     "find_sigmas_and_stack")],
+    "save (FITS)": [("nightlight_tpu_torch.io.fits", "write_file")],
+}
+CONFIGS = (("auto30", 30), ("auto16", 16), ("auto8", 8))
+BUILD = Path(__file__).resolve().parents[2] / "build"
+
+
+class PhaseClock:
+    """Exclusive seconds per phase of the wrapped functions."""
+
+    def __init__(self):
+        self.seconds = {name: 0.0 for name in PHASES}
+        self._stack = []  # [phase, start, seconds of nested phases]
+
+    def wrap(self, phase, fn):
+        @functools.wraps(fn)
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            self._stack.append([phase, time.perf_counter(), 0.0])
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                _, start, nested = self._stack.pop()
+                spent = time.perf_counter() - start
+                self.seconds[phase] += spent - nested
+                if self._stack:
+                    self._stack[-1][2] += spent
+        return timed
+
+
+@contextlib.contextmanager
+def phases_wrapped(clock: PhaseClock):
+    """Replace each phase function by its timed wrapper wherever the port
+    holds a reference to it (its module, classes, and modules that imported
+    it by name); restore them afterwards."""
+    undo = []
+    for phase, targets in PHASES.items():
+        for mod_name, path in targets:
+            owner = importlib.import_module(mod_name)
+            *outer, name = path.split(".")
+            for part in outer:
+                owner = getattr(owner, part)
+            original = getattr(owner, name)
+            timed = clock.wrap(phase, original)
+            holders = [(owner, name)]
+            if not outer:
+                holders += [(m, attr) for m in list(sys.modules.values())
+                            if getattr(m, "__name__", "").startswith("nightlight_tpu_torch")
+                            and m is not owner for attr, v in list(vars(m).items())
+                            if v is original]
+            for holder, attr in holders:
+                setattr(holder, attr, timed)
+                undo.append((holder, attr, original))
+    try:
+        yield
+    finally:
+        for holder, attr, original in reversed(undo):
+            setattr(holder, attr, original)
+
+
+def run_stack(lights, out: str) -> float:
+    args = ["-out", out, "-dark", "dark.fits", "-jpg", "", "-log", "", "stack", *lights]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(args)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise RuntimeError(f"stack {out}: rc {rc}")
+    return time.perf_counter() - t0
+
+
+def summarise(path: str) -> dict:
+    """Per configuration and phase (and the wall): each side's median and
+    quartiles over its runs, and the pairs in which side B was the faster,
+    from the rows of `path` tagged "<side>:<pair>"."""
+    runs = {}  # (config, side) -> {pair: row}
+    with open(path) as f:
+        for line in f:
+            row = json.loads(line)
+            side, pair = row["tag"].split(":")
+            runs.setdefault((row["config"], side), {})[int(pair)] = row
+    out = {}
+    for config in dict.fromkeys(c for c, _ in runs):
+        a, b = runs.get((config, "A"), {}), runs.get((config, "B"), {})
+        pairs = sorted(set(a) & set(b))
+        for key in ["wall_s", *next(iter(a.values()))["phases_s"]]:
+            def value(row):
+                return row[key] if key == "wall_s" else row["phases_s"][key]
+            stats = {}
+            for side, rows in (("A", a), ("B", b)):
+                q = statistics.quantiles([value(r) for r in rows.values()], n=4)
+                stats[side] = {"median": q[1], "q1": q[0], "q3": q[2], "runs": len(rows)}
+            stats["B_faster_pairs"] = sum(value(b[i]) < value(a[i]) for i in pairs)
+            stats["pairs"] = len(pairs)
+            out.setdefault(config, {})[key] = stats
+    print(json.dumps(out, indent=1))
+    return out
+
+
+def main(argv=None) -> list:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--size", type=int, default=4096, help="frame edge in pixels")
+    ap.add_argument("--warmup", type=int, default=2, help="unmeasured stacks per configuration")
+    ap.add_argument("--out", help="append each JSON line to this file too")
+    ap.add_argument("--tag", default="", help="mark of this run's lines in --out")
+    ap.add_argument("--summarise", metavar="FILE", help="summarise the A/B lines of FILE")
+    opts = ap.parse_args(argv)
+    if opts.summarise:
+        return summarise(opts.summarise)
+    if not torch.cuda.is_available():
+        raise SystemExit("phase_split: no CUDA device")
+    out_path = os.path.abspath(opts.out) if opts.out else None
+    kernels.library()
+    results = []
+    BUILD.mkdir(exist_ok=True)
+    work = tempfile.mkdtemp(prefix="phase-split-", dir=BUILD)
+    cwd = os.getcwd()
+    try:
+        lights = [os.path.basename(p) for p in fixtures.gen(work, 30, opts.size, seed=7)]
+        os.chdir(work)
+        for name, n in CONFIGS:
+            for _ in range(opts.warmup):
+                run_stack(lights[:n], f"{name}.fits")
+            clock = PhaseClock()
+            kernels.reset_launch_counts()
+            with phases_wrapped(clock):
+                wall = run_stack(lights[:n], f"{name}.fits")
+            row = {"config": name, "tag": opts.tag, "lights": n, "size": opts.size,
+                   "device": torch.cuda.get_device_name(0), "wall_s": wall,
+                   "phases_s": dict(clock.seconds, rest=wall - sum(clock.seconds.values())),
+                   "launches": kernels.launch_counts()}
+            print(json.dumps(row), flush=True)
+            if out_path:
+                with open(out_path, "a") as f:
+                    f.write(json.dumps(row) + "\n")
+            results.append(row)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -77,12 +77,49 @@ def test_job_json_identical():
     assert j == t
 
 
+def run_main(cli_mod, argv):
+    """cli_mod.main(argv); the port's on the CPU, which it takes only when
+    asked."""
+    if cli_mod is tcli:
+        return cli_mod.main(argv, device="cpu")
+    return cli_mod.main(argv)
+
+
 def test_unported_command_reports_error(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = tcli.main(["-log", "", "stretch", "x.fits"])
+        rc = run_main(tcli, ["-log", "", "stretch", "x.fits"])
     assert rc == -1 and "not ported yet" in buf.getvalue()
+
+
+def test_cli_without_a_card_raises(tmp_path, monkeypatch):
+    """No silent CPU fallback: without a CUDA device, cli.main and
+    new_context raise unless the caller passes the CPU."""
+    from nightlight_tpu_torch.pipeline import context as tctx
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with contextlib.redirect_stdout(io.StringIO()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tcli.main(["-log", "", "stretch", "x.fits"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tctx.new_context(log=io.StringIO())
+    assert tctx.new_context(log=io.StringIO(), device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("command, expect", [
+    ("version", "Version "), ("legal", "ABSOLUTELY NO WARRANTY"), ("help", "usage:")])
+def test_cli_commands_without_tensors_run_without_a_card(tmp_path, monkeypatch, command,
+                                                         expect):
+    """version, legal and help touch no tensor and answer without a CUDA
+    device, as the JAX CLI does."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = tcli.main(["-log", "", command])
+    assert rc == 0 and expect in buf.getvalue()
 
 
 # ---------------------------------------------------------------------------
@@ -113,7 +150,7 @@ def _fixture(d, n, size, seed=7):
 def _run(cli_mod, out, flags=()):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = cli_mod.main(["-out", out, "-log", "", *flags, "stack", "light*.fits"])
+        rc = run_main(cli_mod, ["-out", out, "-log", "", *flags, "stack", "light*.fits"])
     return rc, buf.getvalue()
 
 

@@ -13,7 +13,7 @@ import torch
 from nightlight_tpu import cli as jcli
 from nightlight_tpu_torch import cli as tcli
 from nightlight_tpu_torch.io import fits as tfits
-from test_torch_cli import _compare_logs, _fixture
+from test_torch_cli import _compare_logs, _fixture, run_main
 
 torch.set_num_threads(1)
 
@@ -23,8 +23,8 @@ def _run(cli_mod, out, flags=()):
     random.seed(3)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = cli_mod.main(["-out", out, "-log", "", "-stMemory", "4", *flags, "stack",
-                           "light*.fits"])
+        rc = run_main(cli_mod, ["-out", out, "-log", "", "-stMemory", "4", *flags, "stack",
+                                "light*.fits"])
     return rc, buf.getvalue()
 
 

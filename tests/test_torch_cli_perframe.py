@@ -26,7 +26,7 @@ from nightlight_tpu_torch.models import fastpath as tfast
 from nightlight_tpu_torch.models import presets as tpresets
 from nightlight_tpu_torch.ops import stats as tstats
 from nightlight_tpu_torch.pipeline import context as tctx
-from test_torch_cli import _compare_logs, _fixture
+from test_torch_cli import _compare_logs, _fixture, run_main
 
 torch.set_num_threads(1)
 
@@ -40,8 +40,8 @@ def _run_in(d, cli_mod, flags):
     try:
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            rc = cli_mod.main(["-out", "out.fits", "-log", "", "-jpg", "", *flags,
-                               "stack", "light*.fits"])
+            rc = run_main(cli_mod, ["-out", "out.fits", "-log", "", "-jpg", "", *flags,
+                                    "stack", "light*.fits"])
         return rc, buf.getvalue()
     finally:
         os.chdir(cwd)
