@@ -11,17 +11,21 @@
    5; kernels both as 10 calls back to back and as a single call): K1
    sigma 8 frames, K1 winsorized 16, K1 weighted sigma 10 (also on
    integer-valued frames, many ties), K2 linear fit 30, K3 median 16 and
-   MAD 30, all at size^2 pixels with 5% outliers and 5% NaN; K1 and K2 in
+   MAD 30, all at size^2 pixels with 5% outliers and 5% NaN; K1-K3 in
    both designs, on chip and global scratch, timed in turns (scratch, on
-   chip, on chip, scratch); every wire-count bucket of K1 (n = 6, 15, 24,
-   32, 33, 65) and K2 (n = 25, 64, 65, 96, 128, 160, 200, 256, 300) on
-   2^20 pixels, the on-chip ones also timed against scratch in turns; K4
-   with K=2048, r=32; K5 column and tiled and K6 tiled at 128/256/512/1024
-   threads per block on (40, 2^21) samples. Each row of the kernel table
-   carries the bytes and operations of the call, counted from the shapes
-   (stack_work), its bound at 3.35 TB/s and 67 TFLOP/s float32, the share
-   of that bound, the launches per stack of step 5, and for K3's median
-   and K5 the time of the closest single PyTorch call.
+   chip, on chip, scratch), the run failing unless the on-chip design is
+   the faster; every wire-count bucket of K1 (n = 6, 15, 24, 32, 33, 65),
+   K2 (n = 25, 64, 65, 96, 128, 160, 200, 256, 300) and K3 in both modes
+   (n = 3, 8, 16, 30, 32, 33, 64, 65, 128, 256, 300; at odd n integer
+   frames with signed zeros and all-NaN columns) on 2^20 pixels, the
+   on-chip ones also timed against scratch in turns; K4 with K=2048, r=32,
+   centres past the edges, the whole call and its C entry alone; K5 column
+   and tiled and K6 tiled at 128/256/512/1024 threads per block on (40,
+   2^21) samples. Each row of the kernel table carries the bytes and
+   operations of the call, counted from the shapes (stack_work), its bound
+   at 3.35 TB/s and 67 TFLOP/s float32, the share of that bound, the
+   launches per stack of step 5, and for K3's median, K4 and K5 the time
+   of the closest single PyTorch call.
 4. Writes BITPIX-16 fixtures (nightlight_tpu_torch/fixtures.py, the recipe
    of scripts/gen_fixtures.py): 30 lights and a master dark.
 5. Runs the port's CLI `stack` with -dark on the first N lights: auto mode
@@ -52,6 +56,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -102,7 +107,12 @@ def check(cond: bool, what: str) -> None:
 
 
 def say(msg: str) -> None:
+    """Print a line, and append it to LOG_DIR/chip_smoke.out (a chip run's
+    printed output comes back only as its tail)."""
     print(msg, flush=True)
+    os.makedirs(LOG_DIR, exist_ok=True)
+    with open(os.path.join(LOG_DIR, "chip_smoke.out"), "a") as f:
+        f.write(msg + "\n")
 
 
 def card_line() -> str:
@@ -193,18 +203,20 @@ def bound(nbytes: float, ops: float) -> dict:
 def stack_work(kernel: str, n: int, p: int, weighted: bool = False, winsorize: bool = False,
                mad: bool = False) -> dict:
     """Bytes and operations of one stacking call on (n, p) frames, counted
-    from the shapes. Bytes: each frame sample read once, the result written
-    once, and the clip counts: K3 writes two int32 a pixel; for K1 and K2
-    the output is the two int64 totals (their per-warp partials are
-    intermediate). Operations per pixel: a sort of the column on the pruned
-    network (min and max per compare-exchange); for K1 4 a row to centre
-    and prefix-sum the column (7 weighted) and one clip round, 16 plus two
-    binary searches (winsorized: and one application of the fixed point, 32
-    plus two binary searches); for K2 3 a sample for the first count and
-    sums and one round, 20 plus 24 a sample; for K3 MAD a second sort and
-    the clip pass, 5 a sample. One round is the fewest a pixel runs; how
-    many more it runs depends on its data, so the bound is a floor."""
-    nbytes = 4.0 * n * p + (12.0 * p if kernel == "stack_single_pass" else 4.0 * p + 16.0)
+    from the shapes, for the function whatever implements it. Bytes: each
+    frame sample read once, the result written once, and the two int64
+    clip totals (the kernels' per-warp partials are intermediate; the
+    median's totals are zeros), 4p + 16 for every kernel. Operations per
+    pixel: a sort of the column on the pruned network (min and max per
+    compare-exchange); for K1 4 a row to centre and prefix-sum the column
+    (7 weighted) and one clip round, 16 plus two binary searches
+    (winsorized: and one application of the fixed point, 32 plus two binary
+    searches); for K2 3 a sample for the first count and sums and one
+    round, 20 plus 24 a sample; for K3 MAD 8 a sample: the deviation (2),
+    its order statistic by a merge of the two sorted runs (about 1), and
+    the clip pass (5). One round is the fewest a pixel runs; how many more
+    it runs depends on its data, so the bound is a floor."""
+    nbytes = 4.0 * n * p + 4.0 * p + 16.0
     sort = 2.0 * batcher_pairs(n)
     search = 2.0 * math.ceil(math.log2(n + 1))
     if kernel == "stack_clip":
@@ -213,7 +225,7 @@ def stack_work(kernel: str, n: int, p: int, weighted: bool = False, winsorize: b
     elif kernel == "stack_linfit":
         extra = 3.0 * n + 20.0 + 24.0 * n
     else:
-        extra = (sort + 5.0 * n) if mad else 0.0
+        extra = 8.0 * n if mad else 0.0
     return bound(nbytes, (sort + extra) * p)
 
 
@@ -225,7 +237,23 @@ def kernel_ms(fn) -> dict:
     return {"ms": cuda_ms(fn, calls=KERNEL_CALLS), "single_call_ms": cuda_ms(fn)}
 
 
-def kernel_cases(size: int, stack_cuda, gather_cuda, sortnet_cuda, microbench_layout):
+def bucket_frames(gen, n: int, p: int, device):
+    """The ties a sorting network must get right: integer-valued frames
+    (frames_with_outliers), one column in 64 of small integers about zero
+    with -0.0 and 0.0 among them, and one column in 256 wholly missing."""
+    import torch
+
+    f = frames_with_outliers(gen, n, p, device, integer=True)
+    cols = torch.arange(p, device=device)
+    small = torch.randint(-2, 3, (n, p), generator=gen, device=device).to(torch.float32)
+    flip = torch.rand((n, p), generator=gen, device=device) < 0.5
+    small = torch.where((small == 0) & flip, torch.full((), -0.0, device=device), small)
+    f = torch.where((cols % 64 == 5)[None, :], small, f)
+    f = torch.where((cols % 256 == 7)[None, :], torch.full((), float("nan"), device=device), f)
+    return f.contiguous()
+
+
+def kernel_cases(size: int, stack_cuda, gather_cuda, sortnet_cuda, microbench_layout, kernels):
     """Each kernel against its plain version on the card. Returns the rows
     of the kernel table and the bucket timings."""
     import torch
@@ -269,24 +297,29 @@ def kernel_cases(size: int, stack_cuda, gather_cuda, sortnet_cuda, microbench_la
         scratch = {k: (turns[0][k] + turns[3][k]) / 2 for k in turns[0]}
         return onchip, scratch, turns
 
-    def redesigned_case(name, kernel, n, run, **shape):
-        """K1/K2 at a main-path shape: the on-chip design and the forced
+    def redesigned_case(name, kernel, n, run, library=None, clipped=True, **shape):
+        """K1-K3 at a main-path shape: the on-chip design and the forced
         scratch design, each held bit for bit against the plain version, then
-        timed in turns; the on-chip design must be the faster."""
+        timed in turns; the on-chip design must be the faster. `library`, a
+        single PyTorch call timed beside them; `clipped`, whether the
+        function clips (the median has zero totals)."""
         want = run("plain")
         err, counts = compare(name, n, p, run("onchip"), want, True)
         compare(name + " (scratch design)", n, p, run("scratch"), want, True)
-        check(counts[0] + counts[1] > 0, f"{name}: no sample clipped")
+        check((counts[0] + counts[1] > 0) == clipped, f"{name}: clip totals {counts}")
         onchip, scratch, turns = in_turns(run)
         plain_ms = cuda_ms(lambda: run("plain"))
+        library_ms = None if library is None else cuda_ms(library, calls=KERNEL_CALLS)
         work = stack_work(kernel, n, p, **shape)
         say(f"{name}: on chip {onchip['ms']:.4f} ms ({onchip['single_call_ms']:.4f} single "
             f"call), scratch {scratch['ms']:.4f} ms ({scratch['single_call_ms']:.4f}), "
-            f"plain {plain_ms:.3f} ms, bound {work['bound_ms']:.4f} ms ({work['bound_by']})")
+            f"plain {plain_ms:.3f} ms, library {library_ms} ms, "
+            f"bound {work['bound_ms']:.4f} ms ({work['bound_by']})")
         check(onchip["ms"] < scratch["ms"], f"{name}: on-chip design {onchip['ms']:.3f} ms "
                                             f"not faster than scratch {scratch['ms']:.3f} ms")
-        table_row(name, kernel, n, err, onchip, plain_ms, work, scratch_ms=scratch["ms"],
-                  scratch_single_call_ms=scratch["single_call_ms"], turns=turns)
+        table_row(name, kernel, n, err, onchip, plain_ms, work, library_ms,
+                  scratch_ms=scratch["ms"], scratch_single_call_ms=scratch["single_call_ms"],
+                  turns=turns)
 
     def clip_run(frames, w, winsorize):
         def run(variant):
@@ -316,28 +349,22 @@ def kernel_cases(size: int, stack_cuda, gather_cuda, sortnet_cuda, microbench_la
     def linfit_case(name, n):
         redesigned_case(name, "stack_linfit", n, linfit_run(frames_with_outliers(gen, n, p, dev)))
 
+    def single_pass_run(frames, mad):
+        def run(variant):
+            if variant == "plain":
+                return stack_cuda.stack_single_pass_plain(frames, ref_loc, sig_lo, sig_hi, mad)
+            return stack_cuda.stack_single_pass_cuda(frames, ref_loc, sig_lo, sig_hi, mad,
+                                                     _force_scratch=variant == "scratch")
+        return run
+
     def single_pass_case(name, n, mad):
         frames = frames_with_outliers(gen, n, p, dev)
-
-        def run_k():
-            return stack_cuda.stack_single_pass_cuda(frames, ref_loc, sig_lo, sig_hi, mad)
-
-        def run_p():
-            return stack_cuda.stack_single_pass_plain(frames, ref_loc, sig_lo, sig_hi, mad)
-
-        err, counts = compare(name, n, p, run_k(), run_p(), True)
-        check((counts[0] + counts[1] > 0) == mad, f"{name}: clip totals {counts}")
-        times = kernel_ms(run_k)
-        plain_ms = cuda_ms(run_p)
         # the one PyTorch call closest to the median: nanquantile, which
         # differs in the last bit of the even-count average and gives NaN
         # for an empty column
-        library_ms = None if mad else cuda_ms(lambda: torch.nanquantile(frames, 0.5, dim=0),
-                                              calls=KERNEL_CALLS)
-        work = stack_work("stack_single_pass", n, p, mad=mad)
-        say(f"{name}: kernel {times['ms']:.3f} ms ({times['single_call_ms']:.3f} single call) "
-            f"plain {plain_ms:.3f} ms library {library_ms} ms bound {work['bound_ms']:.3f} ms")
-        table_row(name, "stack_single_pass", n, err, times, plain_ms, work, library_ms)
+        library = None if mad else (lambda: torch.nanquantile(frames, 0.5, dim=0))
+        redesigned_case(name, "stack_single_pass", n, single_pass_run(frames, mad), library,
+                        clipped=mad, mad=mad)
 
     clip_case("stack_clip sigma", 8)
     clip_case("stack_clip winsorized", 16, winsorize=True)
@@ -379,31 +406,66 @@ def kernel_cases(size: int, stack_cuda, gather_cuda, sortnet_cuda, microbench_la
                linfit_run(frames_with_outliers(gen, n, pb, dev, integer=n % 2 == 1)),
                stack_cuda._linfit_plan(n, pb))
     torch.cuda.empty_cache()
+    for n in (3, 8, 16, 30, 32, 33, 64, 65, 128, 256, 300):
+        frames = bucket_frames(gen, n, pb, dev) if n % 2 else frames_with_outliers(gen, n, pb, dev)
+        for mad in (False, True):
+            bucket("stack_single_pass mad" if mad else "stack_single_pass median",
+                   "stack_single_pass", n, single_pass_run(frames, mad),
+                   stack_cuda._single_pass_plan(n, pb, mad))
+    del frames
+    torch.cuda.empty_cache()
 
-    # K4 on a size^2 frame, K = 2048 candidates, r = 32 (65x65 windows)
+    # K4 on a size^2 frame, K = 2048 candidates, r = 32 (65x65 windows),
+    # centres up to 40 pixels past every edge
     img = torch.randn((size, size), generator=gen, device=dev) * 20.0 + 900.0
-    k = 2048
+    k, r = 2048, 32
+    win = 2 * r + 1
     cys = torch.randint(-40, size + 40, (k,), generator=gen, device=dev, dtype=torch.int32)
     cxs = torch.randint(-40, size + 40, (k,), generator=gen, device=dev, dtype=torch.int32)
-    pk, ok_k = gather_cuda.gather_patches_cuda(img, cys, cxs, 32)
-    pp, ok_p = gather_cuda.patches_plain(img, cys, cxs, 32)
+    pk, ok_k = gather_cuda.gather_patches_cuda(img, cys, cxs, r)
+    pp, ok_p = gather_cuda.patches_plain(img, cys, cxs, r)
     torch.cuda.synchronize()
-    check(bool((ok_k == ok_p).all()), "gather_patches: in-frame masks differ")
+    check(ok_k.dtype == torch.bool and torch.equal(ok_k, ok_p),
+          "gather_patches: in-frame masks differ")
     err = float(torch.where(ok_k, (pk - pp).abs(), torch.zeros((), device=dev)).max())
-    times = kernel_ms(lambda: gather_cuda.gather_patches_cuda(img, cys, cxs, 32))
-    plain_ms = cuda_ms(lambda: gather_cuda.patches_plain(img, cys, cxs, 32))
-    # each window read once and written once, the centres read, the mask
-    # written; a gather does no arithmetic
-    work = bound(2.0 * k * 65 * 65 * 4 + k * (8 + 1), 0.0)
-    say(f"gather_patches: K={k} r=32 on {size}x{size} max_abs_err {err:.3g} (where ok) "
-        f"kernel {times['ms']:.3f} ms ({times['single_call_ms']:.3f} single call) "
-        f"plain {plain_ms:.3f} ms bound {work['bound_ms']:.4f} ms")
     check(err == 0.0, f"gather_patches: kernel vs plain error {err}")
+    times = kernel_ms(lambda: gather_cuda.gather_patches_cuda(img, cys, cxs, r))
+    # the kernel alone: the C entry on buffers allocated once
+    lib = kernels.library()
+    out_k = torch.empty_like(pk)
+    ok_buf = torch.empty_like(ok_k)
+    stream = kernels.stream_handle(dev)
+
+    def gather_alone():
+        kernels.check(lib.nl_gather_patches(img.data_ptr(), size, size, cys.data_ptr(),
+                                            cxs.data_ptr(), k, r, out_k.data_ptr(),
+                                            ok_buf.data_ptr(), stream), "gather_patches")
+
+    alone = kernel_ms(gather_alone)
+    check(torch.equal(out_k, pk) and torch.equal(ok_buf, ok_k), "gather_patches: C entry differs")
+    plain_ms = cuda_ms(lambda: gather_cuda.patches_plain(img, cys, cxs, r))
+    # one PyTorch call for the same function on the in-frame elements:
+    # advanced indexing with clamped int64 indices built outside the timing
+    yy, xx, _ = gather_cuda._offsets(cys, cxs, r, size, size)
+    yy_c, xx_c = yy.clamp(0, size - 1), xx.clamp(0, size - 1)
+    library_ms = cuda_ms(lambda: img[yy_c, xx_c], calls=KERNEL_CALLS)
+    # the in-frame elements read once, the centres read, the patch and its
+    # byte mask written once; a gather does no arithmetic
+    inside = int(ok_k.sum())
+    work = bound(4.0 * inside + 8.0 * k + (4.0 + 1.0) * k * win * win, 0.0)
+    say(f"gather_patches: K={k} r={r} on {size}x{size} max_abs_err {err:.3g} (where ok), "
+        f"masks equal; call {times['ms']:.4f} ms ({times['single_call_ms']:.4f} single call), "
+        f"kernel alone {alone['ms']:.4f} ms ({alone['single_call_ms']:.4f}), plain "
+        f"{plain_ms:.3f} ms, img[yy_c, xx_c] {library_ms:.4f} ms, bound "
+        f"{work['bound_ms']:.4f} ms")
     src, replaces = KERNELS["gather_patches"]
     rows.append({"name": "gather_patches", "kernel": "gather_patches", "route": "cuda",
                  "source": src, "replaces": replaces, "max_abs_err": err,
-                 **times, "plain_ms": plain_ms, "library_ms": None, "shape": [k, 65, 65],
+                 **times, "kernel_only_ms": alone["ms"],
+                 "kernel_only_single_call_ms": alone["single_call_ms"], "plain_ms": plain_ms,
+                 "library_ms": library_ms, "shape": [k, win, win], "in_frame": inside,
                  **work, "share_of_bound": work["bound_ms"] / times["ms"]})
+    del yy, xx, yy_c, xx_c, pk, pp, ok_k, ok_p, out_k, ok_buf
 
     # K5 (column, tiled) and K6 (tiled over the block sizes) on the
     # microbenchmarks' (40, 2^21) input; exact sort and the same row-order
@@ -433,6 +495,22 @@ def kernel_cases(size: int, stack_cuda, gather_cuda, sortnet_cuda, microbench_la
                      "library_ms": library_ms, "shape": [40, px], "threads": threads,
                      **work, "share_of_bound": work["bound_ms"] / times["ms"]})
     return rows, buckets
+
+
+def spill_summary(ptxas: str) -> str:
+    """The kernels of the ptxas report that spill ("N bytes spill stores"
+    with N > 0), by source, or that none does."""
+    spills, source, function = [], "", ""
+    for line in ptxas.splitlines():
+        if line.startswith("== "):
+            source = line[3:].strip()
+        elif "Compiling entry function" in line:
+            function = line.split("'")[1] if "'" in line else line
+        else:
+            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if found and found.group(0) != "0 bytes spill stores, 0 bytes spill loads":
+                spills.append(f"{source} {function}: {found.group(0)}")
+    return "ptxas spills: " + ("; ".join(spills) if spills else "none")
 
 
 def write_log(name: str, text: str) -> None:
@@ -527,6 +605,8 @@ def main() -> int:
     from nightlight_tpu_torch.ops import gather_cuda, sortnet_cuda, stack_cuda
     from nightlight_tpu_torch.scripts import microbench_layout, microbench_tile
 
+    with contextlib.suppress(FileNotFoundError):
+        os.remove(os.path.join(LOG_DIR, "chip_smoke.out"))
     say(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     say(card_line())  # name, power limit as nvidia-smi prints them
     kind = torch.cuda.get_device_name(0)
@@ -539,8 +619,10 @@ def main() -> int:
     ptxas = kernels.BUILD_INFO.get("ptxas", "")
     if ptxas:
         write_log("ptxas.txt", ptxas)
+        say(spill_summary(ptxas))
 
-    rows, buckets = kernel_cases(opts.size, stack_cuda, gather_cuda, sortnet_cuda, microbench_layout)
+    rows, buckets = kernel_cases(opts.size, stack_cuda, gather_cuda, sortnet_cuda,
+                                 microbench_layout, kernels)
     torch.cuda.empty_cache()
 
     size = opts.size

@@ -21,7 +21,7 @@ namespace nl {
 struct Column {
     float* base;
     long long stride;
-    __device__ __forceinline__ float& operator[](int i) const {
+    __host__ __device__ __forceinline__ float& operator[](int i) const {
         return base[(long long)i * stride];
     }
 };

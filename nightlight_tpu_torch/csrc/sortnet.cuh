@@ -1,5 +1,5 @@
 // Batcher's odd-even merge sort as a compile-time schedule, shared by the
-// stacking kernels (K1, K2) and the sort-network microbenchmark (K5/K6).
+// stacking kernels (K1, K2, K3) and the sort-network microbenchmark (K5/K6).
 //
 // The schedule is the iterative form of the network for `wires` (a power of
 // two) with every comparator whose upper wire is at or above `rows` dropped:
@@ -20,6 +20,11 @@
 //                                   so register arrays stay in registers
 //   sortnet::for_each_pair(W, R, f) f(lo, hi) for each, as a run-time loop
 //                                   (large networks over shared memory)
+//   sortnet::run_bitonic_merge<W>(ce)
+//                                   Batcher's bitonic merger over W wires,
+//                                   unrolled: (W/2) log2(W) comparators that
+//                                   sort any bitonic input (one that falls
+//                                   then rises, or rises then falls)
 // A compare-exchange puts the smaller element on wire lo; what "smaller"
 // means is the caller's: the value alone, or (value, frame index).
 #pragma once
@@ -31,14 +36,15 @@ namespace sortnet {
 template <typename F>
 __host__ __device__ constexpr void for_each_pair(int wires, int rows, F& f) {
     for (int p = 1; p < wires; p <<= 1) {
+        const int block = ~(2 * p - 1);  // p is a power of two: no division
         for (int k = p; k >= 1; k >>= 1) {
-            for (int j = k % p; j + k < wires; j += 2 * k) {
-                int lim = k < wires - j - k ? k : wires - j - k;
-                for (int i = 0; i < lim; ++i) {
-                    if ((i + j) / (2 * p) != (i + j + k) / (2 * p)) continue;
-                    if (i + j + k >= rows) continue;
-                    f(i + j, i + j + k);
-                }
+            for (int j = k == p ? 0 : k; j + k < wires; j += 2 * k) {  // k % p
+                // [j, j+k) and [j+k, j+2k) each lie in one block of 2k wires,
+                // so either every i < k pairs wires of one block of 2p or
+                // none does: the test is made once, not per comparator
+                if ((j & block) != ((j + k) & block)) continue;
+                int lim = k < rows - j - k ? k : rows - j - k;  // upper wire < rows
+                for (int i = 0; i < lim; ++i) f(i + j, i + j + k);
             }
         }
     }
@@ -84,6 +90,31 @@ __device__ __forceinline__ void run(CE& ce) {
     static_assert(W > 0 && (W & (W - 1)) == 0, "wires must be a power of two");
     static_assert(R >= 0 && R <= W, "real rows must fit the wires");
     run_seq<W, R>(ce, std::make_integer_sequence<int, count_pairs(W, R)>{});
+}
+
+// Comparator k of the bitonic merger over W wires: stage s = k / (W/2)
+// compares wires i and i + d, d = W >> (s + 1), for each i with bit d clear.
+__host__ __device__ constexpr Pair bitonic_pair(int wires, int k) {
+    int half = wires / 2;
+    int d = wires >> (k / half + 1);
+    int j = k % half;
+    int lo = (j / d) * 2 * d + j % d;
+    return Pair{lo, lo + d};
+}
+
+__host__ __device__ constexpr int log2_wires(int wires) {
+    return wires <= 1 ? 0 : 1 + log2_wires(wires / 2);
+}
+
+template <int W, typename CE, int... K>
+__device__ __forceinline__ void bitonic_seq(CE& ce, std::integer_sequence<int, K...>) {
+    (ce.template apply<bitonic_pair(W, K).lo, bitonic_pair(W, K).hi>(), ...);
+}
+
+template <int W, typename CE>
+__device__ __forceinline__ void run_bitonic_merge(CE& ce) {
+    static_assert(W > 1 && (W & (W - 1)) == 0, "wires must be a power of two");
+    bitonic_seq<W>(ce, std::make_integer_sequence<int, W / 2 * log2_wires(W)>{});
 }
 
 }  // namespace sortnet

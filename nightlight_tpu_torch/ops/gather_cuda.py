@@ -6,7 +6,8 @@ contract of both (and of detect/stars.py ``_patches``): ``(patch, ok)`` with
 patch (K, 2r+1, 2r+1) float32 windows around integer centres and ok marking
 the in-frame elements. Out-of-frame patch values are unspecified (the
 kernel writes 0, the plain version reads the clamped edge pixel); every
-consumer masks them with ok.
+consumer masks them with ok. The kernel writes ok in the same pass as the
+patch; the plain version builds it from the window offsets.
 
 The wrapper runs the plain version only for a tensor on the CPU. A CUDA
 tensor goes to the kernel, or the wrapper raises.
@@ -57,12 +58,14 @@ def gather_patches_cuda(img, cys, cxs, radius: int):
     h, w = img.shape
     k = int(cys.shape[0])
     size = 2 * radius + 1
+    if k * size >= 1 << 31:
+        raise ValueError(f"gather_patches: {k} candidates x {size} rows reach 2^31")
     lib = kernels.library()
     out = torch.empty((k, size, size), dtype=torch.float32, device=img.device)
+    ok = torch.empty((k, size, size), dtype=torch.bool, device=img.device)
     err = lib.nl_gather_patches(img.data_ptr(), h, w, cys.data_ptr(), cxs.data_ptr(),
-                                k, int(radius), out.data_ptr(),
+                                k, int(radius), out.data_ptr(), ok.data_ptr(),
                                 kernels.stream_handle(img.device))
     kernels.check(err, "gather_patches")
     kernels.count_launch("gather_patches")
-    _, _, ok = _offsets(cys, cxs, radius, h, w)
     return out, ok

@@ -11,13 +11,13 @@ for missing samples and return ``(stacked (P,), clip_lo, clip_hi)`` with the
 clip totals as 0-d int64 tensors (30 frames x 16.8 MP already holds 5e8
 samples; a larger batch passes 2^31).
 
-K1 and K2 each have two CUDA designs, picked by the frame count alone
-(``_clip_plan``, ``_linfit_plan``): the column on chip (registers and shared
-memory, one launch over all pixels) up to 32 frames for K1 and 256 for K2,
-and the first design of the port, the column in global scratch launched in
-pixel chunks, above that. The limits are where the on-chip design stopped
-beating the scratch design on the card (chip_smoke.py times both at every
-bucket).
+Each kernel has two CUDA designs, picked by the frame count alone
+(``_clip_plan``, ``_linfit_plan``, ``_single_pass_plan``): the column on
+chip (registers and shared memory, one launch over all pixels) up to 32
+frames for K1 and 256 for K2 and K3, and the first design of the port, the
+column in global scratch launched in pixel chunks, above that. The limits
+are where the on-chip design stopped beating the scratch design on the card
+(chip_smoke.py times both at every bucket).
 
 A wrapper runs the plain version only for a tensor on the CPU. A CUDA tensor
 goes to the kernel, or the wrapper raises.
@@ -45,9 +45,11 @@ SCRATCH_BYTES = 2 << 30
 SM_SHARED_BYTES = 233_472
 BLOCK_SHARED_BYTES = 232_448
 BLOCK_RESERVED_BYTES = 1_024
-# wire counts of the on-chip kernels (csrc/stack_clip.cu, csrc/stack_linfit.cu)
+# wire counts of the on-chip kernels (csrc/stack_clip.cu, csrc/stack_linfit.cu,
+# csrc/stack_single_pass.cu); above 64 wires the column is in shared memory
 CLIP_WIRES = (8, 16, 32)
 LINFIT_WIRES = (32, 64, 128, 256)
+SINGLE_PASS_WIRES = (8, 16, 32, 64, 128, 256)
 # threads per block of the on-chip kernels, in order of preference: blocks
 # of two warps let a kernel of many registers per thread fill an SM in fine
 # steps (K2 at 32 wires, about 90 registers a thread: 2 blocks of 256
@@ -92,7 +94,7 @@ def _grid_warps(pixels: int, threads: int) -> int:
 
 
 def _clip_partials(plan: Plan, p: int, device):
-    """Room for the per-warp (low, high) clip count sums that K1/K2 write
+    """Room for the per-warp (low, high) clip count sums that K1-K3 write
     (csrc/common.cuh write_clip_partials), and the launches of `plan` over
     p pixels: (partials, [(first pixel, pixels, first warp), ...])."""
     if plan.variant == "onchip":
@@ -150,6 +152,17 @@ def _linfit_plan(n: int, p: int, force_scratch: bool = False) -> Plan:
     if plan is not None:
         return plan
     return Plan("scratch", 0, 256, 0, _chunk_pixels(p, n * 5))
+
+
+def _single_pass_plan(n: int, p: int, mad: bool, force_scratch: bool = False) -> Plan:
+    """K3's launch for (n, p) frames: on chip up to 256 frames (in registers
+    up to 64 wires; above, the column in shared memory, 4n bytes per
+    thread), else global scratch of n rows (MAD 2n) in pixel chunks."""
+    plan = None if force_scratch else _onchip_plan(
+        n, p, SINGLE_PASS_WIRES, lambda wires: 4 * n if wires > 64 else 0)
+    if plan is not None:
+        return plan
+    return Plan("scratch", 0, 256, 0, _chunk_pixels(p, (2 * n if mad else n) * 4))
 
 
 # ---------------------------------------------------------------------------
@@ -367,25 +380,41 @@ def stack_single_pass(frames: torch.Tensor, ref_loc: float, sigma_lo: float = 0.
     return stack_single_pass_cuda(frames, ref_loc, sigma_lo, sigma_hi, mad)
 
 
-def stack_single_pass_cuda(frames, ref_loc, sigma_lo=0.0, sigma_hi=0.0, mad=False):
+def stack_single_pass_cuda(frames, ref_loc, sigma_lo=0.0, sigma_hi=0.0, mad=False,
+                           _force_scratch=False):
+    """K3 on the card; `_force_scratch` as in stack_sigma_cuda. The median
+    writes no clip counts: its totals are zeros."""
     kernels.require_cuda(frames, "stack_single_pass", torch.float32)
     n, p = frames.shape
     lib = kernels.library()
-    rows = 2 * n if mad else n
-    q = _chunk_pixels(p, rows * 4)
-    scratch = torch.empty((rows, q), dtype=torch.float32, device=frames.device)
+    plan = _single_pass_plan(n, p, mad, _force_scratch)
     out = torch.empty(p, dtype=torch.float32, device=frames.device)
-    clips = torch.empty((2, p), dtype=torch.int32, device=frames.device)
+    partials, launches = _clip_partials(plan, p, frames.device)
+    partials_ptr = partials.data_ptr() if mad else None  # the median counts nothing
     stream = kernels.stream_handle(frames.device)
-    for s in range(0, p, q):
-        err = lib.nl_stack_single_pass(
-            frames.data_ptr() + 4 * s, n, p, min(q, p - s), float(sigma_lo), float(sigma_hi),
-            float(ref_loc), int(bool(mad)), scratch.data_ptr(), out.data_ptr() + 4 * s,
-            clips.data_ptr() + 4 * s, stream)
-        kernels.check(err, "stack_single_pass")
-        kernels.count_launch("stack_single_pass")
-    totals = torch.sum(clips, dim=1, dtype=torch.int64)
-    return out, totals[0], totals[1]
+    args = (float(sigma_lo), float(sigma_hi), float(ref_loc), int(bool(mad)))
+    if plan.variant == "onchip":
+        if launches:
+            err = lib.nl_stack_single_pass_onchip(frames.data_ptr(), n, p, *args, plan.wires,
+                                                  plan.threads, plan.smem_bytes, out.data_ptr(),
+                                                  partials_ptr, stream)
+            kernels.check(err, "stack_single_pass")
+            kernels.count_launch("stack_single_pass")
+    else:
+        rows = 2 * n if mad else n
+        scratch = torch.empty((rows, plan.pixels_per_launch), dtype=torch.float32,
+                              device=frames.device)
+        for s, q, w in launches:
+            err = lib.nl_stack_single_pass(
+                frames.data_ptr() + 4 * s, n, p, q, *args, scratch.data_ptr(),
+                out.data_ptr() + 4 * s, None if partials_ptr is None else partials_ptr + 8 * w,
+                stream)
+            kernels.check(err, "stack_single_pass")
+            kernels.count_launch("stack_single_pass")
+    if mad:
+        return (out, *_clip_totals(partials))
+    zeros = torch.zeros(2, dtype=torch.int64, device=frames.device)
+    return out, zeros[0], zeros[1]
 
 
 def _single_pass_block(f, ref_loc, sigma_lo, sigma_hi, mad):

@@ -3,7 +3,10 @@
 Runs the port's CLI `stack` on the fixtures of nightlight_tpu_torch/
 fixtures.py (BITPIX-16 lights and a master dark, seed 7) in its auto mode
 at 30, 16 and 8 lights (linear fit, winsorized and sigma clip, each with
-its goal-seek), the flags of chip_smoke.py. Each configuration runs
+its goal-seek), with -stMode 4 at 30 (MAD, kernel K3 on the fused path) and
+with -stMode 0 -lsEst 1 at 16 (median through K3 on the per-frame path,
+whose preprocess falls under "rest"), the flags of chip_smoke.py. Each
+configuration runs
 `--warmup` times, then once measured with every phase function wrapped:
 the wrapper synchronises the card on entry and exit and books the time
 to its phase, less the time of phases nested inside it (star detection
@@ -12,7 +15,7 @@ phase: operator dispatch, reference selection, histogram match and the
 host work between phases.
 
     python -m nightlight_tpu_torch.scripts.phase_split [--size 4096] [--warmup 2] \
-        [--out FILE --tag TEXT]
+        [--configs mad30,median16_lsEst1] [--out FILE --tag TEXT]
     python -m nightlight_tpu_torch.scripts.phase_split --summarise FILE
 
 Prints one JSON line per configuration: the wall, the seconds of each
@@ -61,7 +64,10 @@ PHASES = {
                                      "find_sigmas_and_stack")],
     "save (FITS)": [("nightlight_tpu_torch.io.fits", "write_file")],
 }
-CONFIGS = (("auto30", 30), ("auto16", 16), ("auto8", 8))
+# name, lights, extra CLI flags
+CONFIGS = (("auto30", 30, ()), ("auto16", 16, ()), ("auto8", 8, ()),
+           ("mad30", 30, ("-stMode", "4")),
+           ("median16_lsEst1", 16, ("-stMode", "0", "-lsEst", "1")))
 BUILD = Path(__file__).resolve().parents[2] / "build"
 
 
@@ -119,8 +125,8 @@ def phases_wrapped(clock: PhaseClock):
             setattr(holder, attr, original)
 
 
-def run_stack(lights, out: str) -> float:
-    args = ["-out", out, "-dark", "dark.fits", "-jpg", "", "-log", "", "stack", *lights]
+def run_stack(lights, out: str, flags=()) -> float:
+    args = ["-out", out, "-dark", "dark.fits", "-jpg", "", "-log", "", *flags, "stack", *lights]
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         rc = cli.main(args)
@@ -165,6 +171,8 @@ def main(argv=None) -> list:
     ap.add_argument("--out", help="append each JSON line to this file too")
     ap.add_argument("--tag", default="", help="mark of this run's lines in --out")
     ap.add_argument("--summarise", metavar="FILE", help="summarise the A/B lines of FILE")
+    ap.add_argument("--configs", default=",".join(c[0] for c in CONFIGS),
+                    help="comma-separated configurations to run (default: all)")
     opts = ap.parse_args(argv)
     if opts.summarise:
         return summarise(opts.summarise)
@@ -179,14 +187,19 @@ def main(argv=None) -> list:
     try:
         lights = [os.path.basename(p) for p in fixtures.gen(work, 30, opts.size, seed=7)]
         os.chdir(work)
-        for name, n in CONFIGS:
+        chosen = opts.configs.split(",")
+        unknown = set(chosen) - {c[0] for c in CONFIGS}
+        if unknown:
+            raise SystemExit(f"phase_split: unknown configurations {sorted(unknown)}")
+        for name, n, flags in (c for c in CONFIGS if c[0] in chosen):
             for _ in range(opts.warmup):
-                run_stack(lights[:n], f"{name}.fits")
+                run_stack(lights[:n], f"{name}.fits", flags)
             clock = PhaseClock()
             kernels.reset_launch_counts()
             with phases_wrapped(clock):
-                wall = run_stack(lights[:n], f"{name}.fits")
-            row = {"config": name, "tag": opts.tag, "lights": n, "size": opts.size,
+                wall = run_stack(lights[:n], f"{name}.fits", flags)
+            row = {"config": name, "tag": opts.tag, "lights": n, "flags": list(flags),
+                   "size": opts.size,
                    "device": torch.cuda.get_device_name(0), "wall_s": wall,
                    "phases_s": dict(clock.seconds, rest=wall - sum(clock.seconds.values())),
                    "launches": kernels.launch_counts()}

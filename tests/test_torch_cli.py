@@ -108,6 +108,18 @@ def test_cli_without_a_card_raises(tmp_path, monkeypatch):
     assert tctx.new_context(log=io.StringIO(), device="cpu").device == torch.device("cpu")
 
 
+@pytest.mark.parametrize("script", ["phase_split", "gather_split"])
+def test_measurement_scripts_without_a_card_raise(monkeypatch, script):
+    """The measurement scripts time the card and nothing else: without a
+    CUDA device they stop before any work."""
+    import importlib
+
+    mod = importlib.import_module(f"nightlight_tpu_torch.scripts.{script}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        mod.main([])
+
+
 @pytest.mark.parametrize("command, expect", [
     ("version", "Version "), ("legal", "ABSOLUTELY NO WARRANTY"), ("help", "usage:")])
 def test_cli_commands_without_tensors_run_without_a_card(tmp_path, monkeypatch, command,

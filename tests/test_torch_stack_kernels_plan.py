@@ -1,5 +1,5 @@
-"""What the on-chip K1/K2 designs put in reach of the CPU: the shared
-sorting network of csrc/sortnet.cuh (compiled on the host), the launch plans
+"""What the on-chip K1-K3 designs put in reach of the CPU: the shared
+sorting networks of csrc/sortnet.cuh (compiled on the host), the launch plans
 of ops/stack_cuda.py, and the plain versions (the specification the card is
 held to bit for bit) against the JAX package on tie-heavy columns."""
 
@@ -53,7 +53,19 @@ void unrolled() {
     std::printf("\n");
 }
 
+template <int W>
+void bitonic() {
+    std::printf("bitonic %d %d %d", W, W, W / 2 * sortnet::log2_wires(W));
+    Print p;
+    sortnet::run_bitonic_merge<W>(p);
+    std::printf("\n");
+}
+
 int main() {
+    bitonic<8>();
+    bitonic<16>();
+    bitonic<32>();
+    bitonic<64>();
     unrolled<8, 8>();
     unrolled<16, 16>();
     unrolled<32, 32>();
@@ -155,6 +167,35 @@ def test_sortnet_header_schedule(host_schedules, kind, wires):
         np.testing.assert_array_equal(si, order)
 
 
+@pytest.mark.parametrize("wires", [8, 16, 32, 64])
+def test_bitonic_merge_schedule(host_schedules, wires):
+    """K3's second network in registers: the bitonic merger of sortnet.cuh
+    has (W/2) log2 W comparators and sorts every bitonic 0/1 input (the 0-1
+    principle for merging networks) and the kernels' case, deviations that
+    fall to the median's row and rise after it, 3.0e38 on missing rows."""
+    pairs = host_schedules[("bitonic", wires, wires)]
+    assert len(pairs) == wires // 2 * (wires.bit_length() - 1)
+    assert all(0 <= a < b < wires for a, b in pairs)
+    rows = []
+    for i in range(wires + 1):  # 0^i 1^j 0^k and 1^i 0^j 1^k
+        for j in range(wires + 1 - i):
+            rows.append([0] * i + [1] * j + [0] * (wires - i - j))
+            rows.append([1] * i + [0] * j + [1] * (wires - i - j))
+    rng = np.random.default_rng(wires)
+    for _ in range(200):
+        cnt = int(rng.integers(1, wires + 1))
+        z = np.sort(np.round(rng.normal(0.0, 3.0, cnt)).astype(np.float32))
+        h = max(cnt, 1) // 2
+        med = z[h] if cnt % 2 else np.float32(0.5) * (z[h - 1] + z[h])
+        rows.append(np.r_[np.abs(z - med), np.full(wires - cnt, 3.0e38, np.float32)])
+    v = np.array(rows, dtype=np.float32)
+    s = v.copy()
+    for a, b in pairs:
+        lo, hi = np.minimum(s[:, a], s[:, b]), np.maximum(s[:, a], s[:, b])
+        s[:, a], s[:, b] = lo, hi
+    np.testing.assert_array_equal(s, np.sort(v, axis=1))
+
+
 # ---------------------------------------------------------------------------
 # Launch plans
 # ---------------------------------------------------------------------------
@@ -198,6 +239,31 @@ def test_launch_plans(kernel, weighted):
         assert plan.pixels_per_launch * per_pixel <= stack_cuda.SCRATCH_BYTES
 
 
+@pytest.mark.parametrize("mad", [False, True])
+def test_single_pass_plan(mad):
+    """K3 for every frame count 1-300: registers up to 64 frames (no shared
+    memory), the column in shared memory (4n bytes a thread) up to 256,
+    global scratch above; the wires the fewest power of two that holds the
+    column, two blocks to an SM, one launch over every pixel; the scratch
+    chunks within the scratch budget (n rows a pixel, MAD 2n)."""
+    p = 4096 * 4096
+    for n in range(1, 301):
+        plan = stack_cuda._single_pass_plan(n, p, mad)
+        forced = stack_cuda._single_pass_plan(n, p, mad, force_scratch=True)
+        assert forced.variant == "scratch" and forced.wires == 0 and forced.smem_bytes == 0
+        assert forced.pixels_per_launch * (2 * n if mad else n) * 4 <= stack_cuda.SCRATCH_BYTES
+        if n > 256:
+            assert plan == forced, n
+            continue
+        assert plan.variant == "onchip", n
+        assert plan.wires == min(w for w in stack_cuda.SINGLE_PASS_WIRES if w >= n), n
+        assert plan.pixels_per_launch == p
+        assert plan.threads % 32 == 0 and 32 <= plan.threads <= 256
+        assert plan.smem_bytes == (4 * n * plan.threads if plan.wires > 64 else 0), n
+        assert 2 * (plan.smem_bytes + stack_cuda.BLOCK_RESERVED_BYTES) <= \
+            stack_cuda.SM_SHARED_BYTES, n
+
+
 @pytest.mark.parametrize("n,p", [(8, 0), (8, 1), (8, 1000), (30, 4096 * 4096 + 17),
                                  (300, 4096 * 4096 + 17), (70, 5 * 10**6)])
 def test_clip_partials_cover_every_warp(n, p):
@@ -205,7 +271,9 @@ def test_clip_partials_cover_every_warp(n, p):
     every launch, the launches tiling [0, p) in order, each launch's warps
     after the previous one's."""
     for plan in (stack_cuda._clip_plan(n, p, False), stack_cuda._linfit_plan(n, p),
-                 stack_cuda._linfit_plan(n, p, force_scratch=True)):
+                 stack_cuda._linfit_plan(n, p, force_scratch=True),
+                 stack_cuda._single_pass_plan(n, p, True),
+                 stack_cuda._single_pass_plan(n, p, True, force_scratch=True)):
         partials, launches = stack_cuda._clip_partials(plan, p, "cpu")
         assert partials.shape[1] == 2 and partials.dtype == torch.int32
         pixel = warp = 0

@@ -135,6 +135,24 @@ def test_median_ignores_weights_and_weighted_mad_raises():
     assert str(te.value) == str(je.value)
 
 
+def test_cuda_tensor_never_reaches_plain_version():
+    """On a CUDA tensor K3's wrapper launches the kernel or raises: its
+    dispatch names the plain version only under the CPU branch, and the
+    CUDA entry refuses a CPU tensor."""
+    import inspect
+
+    src = inspect.getsource(stack_cuda.stack_single_pass)
+    cpu_branch, rest = src.split('if frames.device.type == "cpu":')
+    assert "stack_single_pass_plain" not in cpu_branch
+    assert rest.strip().splitlines()[0].strip().startswith("return stack_single_pass_plain(")
+    assert "stack_single_pass_cuda(" in rest and rest.count("_plain") == 1
+    cuda_src = inspect.getsource(stack_cuda.stack_single_pass_cuda)
+    assert "_plain" not in cuda_src and "except" not in cuda_src
+    for mad in (False, True):
+        with pytest.raises(ValueError, match="CUDA"):
+            stack_cuda.stack_single_pass_cuda(torch.zeros(4, 8), 0.0, 2.5, 2.5, mad)
+
+
 def _microbench_layout():
     spec = importlib.util.spec_from_file_location(
         "jax_microbench_layout", os.path.join(ROOT, "scripts", "microbench_layout.py"))

@@ -31,20 +31,25 @@ def synth_field(rng, h=256, w=256, stars=(), bg=100.0, noise=2.0, fwhm=8.0, flux
     return img
 
 
-@pytest.mark.parametrize("radius", [32, 16, 3])
+@pytest.mark.parametrize("radius", [32, 16, 8, 3, 1])
 def test_patch_gather_plain_matches_pallas_where_ok(pallas_interpret, radius):
     """K4's plain version against gather_patches_pallas: equal masks and
     equal values wherever the window lies in the frame (out-of-frame values
-    are unspecified by both contracts)."""
+    are unspecified by both contracts). Centres reach 40 pixels past every
+    edge, as chip_smoke.py draws them for the kernel."""
     rng = np.random.default_rng(radius)
     img = rng.normal(100, 5, size=(140, 210)).astype(np.float32)
-    cy = np.r_[rng.integers(0, 140, 40), [0, 1, 138, 139]].astype(np.int32)
-    cx = np.r_[rng.integers(0, 210, 40), [0, 209, 1, 208]].astype(np.int32)
+    cy = np.r_[rng.integers(0, 140, 40), [0, 1, 138, 139],
+               rng.integers(-40, 180, 12), [-40, 179, -1, 140]].astype(np.int32)
+    cx = np.r_[rng.integers(0, 210, 40), [0, 209, 1, 208],
+               rng.integers(-40, 250, 12), [249, -40, 210, -1]].astype(np.int32)
     pj, okj = gp.gather_patches_pallas(jnp.asarray(img), jnp.asarray(cy), jnp.asarray(cx), radius)
     pt, okt = gather_cuda.gather_patches(torch.from_numpy(img), torch.from_numpy(cy),
                                          torch.from_numpy(cx), radius)
     ok = np.asarray(okj)
     assert np.array_equal(ok, okt.numpy())
+    assert okt.dtype == torch.bool and 0 < ok.sum() < ok.size
+    assert not ok[-4:].all(axis=(1, 2)).any()  # centres outside: every window cut
     np.testing.assert_array_equal(pt.numpy()[ok], np.asarray(pj)[ok])
 
 
