@@ -36,6 +36,16 @@
    the clip line where expected, the output FITS and the kernel launch
    counts of each run; then holds two small stacks on the card (defaults;
    -stMode 4 -lsEst 1) against the same stacks on the CPU.
+5b. The one-shot-colour chain on RGGB mosaics of the same recipe (16
+   lights, mono dark): osc12_G (-debayer G -stMode 3, BASELINE config #3,
+   fused), osc16_R_chain (-debayer R with both debands, -preScale 1.5,
+   -binning 2, -backGrid 128 -backClip 4, -stMode 3; fused, 2048x2048 out)
+   and osc8_B_perframe (-debayer B -debandH 50 -lsEst 1, per-frame path),
+   each checked for its mode, path, bayer / debayer / chain lines, output
+   shape and K1 and K4 launches; then `stretch` twice on osc12_G's stack
+   (defaults; -blurSigma 1 -usmSigma 2 -usmGain 1), each writing finite
+   FITS, TIFF and JPEG and launching K4; then a small OSC stack and a small
+   stretch on the card against the same runs on the CPU.
 6. Runs the sort-network microbenchmarks (nightlight_tpu_torch.scripts.
    microbench_layout and microbench_tile) and checks their launches and
    that every variant gives the same value.
@@ -95,6 +105,25 @@ STACKS = [
     ("lsEst4_8", 8, ("-lsEst", "4"), 2, "stack_clip", True, True),
 ]
 PER_FRAME = "Fused batch executor off ("
+
+_CHAIN = ("-debandH", "50", "-debandV", "50", "-preScale", "1.5", "-binning", "2",
+          "-backGrid", "128", "-backClip", "4")
+# name, lights, extra CLI flags (after -dark dark.fits -cfa RGGB), stacking
+# mode (None: the auto mode of the frames stacked), per-frame operator
+# path, output size divisor, per-frame lines of the chain. osc16_R_chain
+# sets -stMode 3: on this star field detection keeps 4-13 stars a frame of
+# the interpolated R plane, so alignment drops frames (11 of 16 kept at
+# 4096^2, 6 at 1024^2), and the auto mode would follow the count.
+OSC_STACKS = [
+    ("osc12_G", 12, ("-debayer", "G", "-stMode", "3"), 3, False, 1, ()),
+    ("osc16_R_chain", 16, ("-debayer", "R", *_CHAIN, "-stMode", "3"), 3, False, 2,
+     ("De-banded horizontally", "De-banded vertically", "Applying pixel math",
+      "After 2x2 binning", "Background grid 128")),
+    ("osc8_B_perframe", 8, ("-debayer", "B", "-debandH", "50", "-lsEst", "1"), None, True, 1,
+     ("De-banded horizontally",)),
+]
+STRETCHES = [("stretch", ()),
+             ("stretch_blur_usm", ("-blurSigma", "1", "-usmSigma", "2", "-usmGain", "1"))]
 
 
 class SmokeFailure(Exception):
@@ -535,23 +564,26 @@ def run_cli(cli, args, log_name: str, device=None):
     return rc, log, seconds
 
 
-def check_output(fits_mod, name: str, size: int):
+def check_output(fits_mod, name: str, size: int, shape=None):
     img = fits_mod.read_file(name)
     data = img.to_numpy()
-    check(data.shape == (size, size), f"{name}: shape {data.shape}")
+    shape = shape or (size, size)
+    check(data.shape == shape, f"{name}: shape {data.shape}, expected {shape}")
     finite = float(np.isfinite(data).mean())
     check(finite > 0.99, f"{name}: only {finite:.4f} finite")
     return data
 
 
-def small_gpu_vs_cpu(cli, fits_mod, fixtures, work: str, tag: str, flags) -> None:
+def small_gpu_vs_cpu(cli, fits_mod, fixtures, work: str, tag: str, flags,
+                     bayer=None) -> str:
     """The same small stack on the card (kernels) and on the CPU (plain
-    versions, the path the CPU tests hold against the JAX package)."""
+    versions, the path the CPU tests hold against the JAX package). Returns
+    the directory of the stacks (gpu.fits, cpu.fits)."""
     import torch
 
     small = 512
     sdir = os.path.join(work, f"small_{tag}")
-    fixtures.gen(sdir, 8, small, seed=11)
+    fixtures.gen(sdir, 8, small, seed=11, bayer=bayer)
     os.chdir(sdir)
     names = sorted(glob.glob("light*.fits"))
     args = ["-dark", "dark.fits", "-jpg", "", "-log", "", "-exportStats", "", *flags,
@@ -575,6 +607,35 @@ def small_gpu_vs_cpu(cli, fits_mod, fixtures, work: str, tag: str, flags) -> Non
     # most 0.1% of pixels move by more than 1e-4, none by more than 10%.
     check(float(np.median(rel)) <= 1e-5 and off <= 1e-3 and float(rel.max()) <= 0.1,
           f"small stack {tag} gpu vs cpu outside the band")
+    return sdir
+
+
+def small_stretch_gpu_vs_cpu(cli, fits_mod, sdir: str) -> None:
+    """`stretch` of the small OSC stack on the card and on the CPU: the
+    same auto-stretch rounds, and the pixels within band. The band: float32
+    pow rounds a step apart on the two devices, and a black shift carries
+    it to every later pixel; the stretched image lies in [0, 1], so 1e-4
+    absolute, the typical pixel within 1e-6."""
+    import torch
+
+    os.chdir(sdir)
+    args = ["-log", "", "-jpg", "", "-blurSigma", "1", "-usmSigma", "2", "-usmGain", "1",
+            "stretch", "gpu.fits"]
+    rc_g, log_g, _ = run_cli(cli, ["-out", "sg.fits", *args], "chip_smoke_small_stretch_gpu.log")
+    rc_c, log_c, _ = run_cli(cli, ["-out", "sc.fits", *args], "chip_smoke_small_stretch_cpu.log",
+                             device=torch.device("cpu"))
+    check(rc_g == 0 and rc_c == 0, f"small stretch: rc gpu {rc_g} cpu {rc_c}")
+    rounds_g = [ln for ln in log_g.splitlines() if "Linear location" in ln]
+    rounds_c = [ln for ln in log_c.splitlines() if "Linear location" in ln]
+    g = check_output(fits_mod, "sg.fits", 512)
+    c = check_output(fits_mod, "sc.fits", 512)
+    diff = np.abs(g - c)
+    say(f"small stretch gpu vs cpu: rounds {len(rounds_g)} / {len(rounds_c)}, same "
+        f"{rounds_g == rounds_c}; median abs diff {float(np.median(diff)):.3g}, "
+        f"max {float(diff.max()):.3g}")
+    check(rounds_g == rounds_c and len(rounds_g) > 0, "small stretch: rounds differ")
+    check(float(np.median(diff)) <= 1e-6 and float(diff.max()) <= 1e-4,
+          "small stretch gpu vs cpu outside the band")
 
 
 def run_microbench(mod, log_name: str):
@@ -632,6 +693,7 @@ def main() -> int:
     totals = {name: 0 for name in kernels.KERNEL_NAMES}
     per_stack = {}
     walls = {}
+    peaks = {}
     try:
         t0 = time.perf_counter()
         lights = [os.path.basename(p) for p in fixtures.gen(work, 30, size, seed=7)]
@@ -667,9 +729,87 @@ def main() -> int:
             check_output(nlfits, out, size)
             os.remove(out)
 
+        for ln in lights:
+            os.remove(ln)
+
+        # the one-shot-colour chain and the stretch command
+        osc = os.path.join(work, "osc")
+        t0 = time.perf_counter()
+        osc_lights = [os.path.basename(p) for p in
+                      fixtures.gen(osc, 16, size, seed=7, bayer="RGGB")]
+        say(f"fixtures: 16 RGGB lights + dark of {size}x{size} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        os.chdir(osc)
+        for name, n, flags, mode, per_frame, div, chain in OSC_STACKS:
+            out = f"stack_{name}.fits"
+            kernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            rc, log, seconds = run_cli(
+                cli, ["-out", out, "-dark", "dark.fits", "-cfa", "RGGB", "-jpg", "", "-log", "",
+                      *flags, "stack", *osc_lights[:n]], f"chip_smoke_stack_{name}.log")
+            counts = kernels.launch_counts()
+            for k, v in counts.items():
+                totals[k] += v
+            per_stack[name] = counts
+            walls[name] = seconds
+            peaks[name] = torch.cuda.max_memory_allocated() / (1 << 30)
+            stacking = re.findall(r"Stacking (\d+) frames with stacking mode (\d) ", log)
+            notes = [ln for ln in log.splitlines()
+                     if ln.startswith(("Clipped", "Reached", "Stacking", PER_FRAME))]
+            say(f"stack {name} ({n} lights {' '.join(flags)}): rc {rc} wall {seconds:.2f} s "
+                f"peak {peaks[name]:.2f} GiB launches {counts} {notes}")
+            check(rc == 0, f"stack {name}: rc {rc}; log tail: {log[-2000:]}")
+            check("Error:" not in log, f"stack {name}: error in log")
+            check(len(stacking) == 1, f"stack {name}: no stacking line")
+            stacked, got_mode = int(stacking[0][0]), int(stacking[0][1])
+            want_mode = mode if mode is not None else (
+                5 if stacked >= 25 else 3 if stacked >= 15 else 2 if stacked >= 6 else 1)
+            check(stacked >= 3 and got_mode == want_mode,
+                  f"stack {name}: {stacked} frames in mode {got_mode}, expected {want_mode}")
+            check((PER_FRAME in log) == per_frame,
+                  f"stack {name}: per-frame operator path {'not ' if per_frame else ''}taken")
+            for text in ("bad bayer pixels", "Debayered channel", *chain):
+                lines = [ln for ln in log.splitlines() if text in ln]
+                check(len(lines) == n, f"stack {name}: {len(lines)} '{text}' lines for {n} lights")
+            check("Clipped low" in log, f"stack {name}: clip line missing")
+            check(counts["stack_clip"] > 0, f"stack {name}: stack_clip never launched")
+            check(counts["gather_patches"] > 0, f"stack {name}: gather_patches never launched")
+            check_output(nlfits, out, size, (size // div, size // div))
+            if name != "osc12_G":
+                os.remove(out)
+        for name, flags in STRETCHES:
+            kernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            rc, log, seconds = run_cli(
+                cli, ["-out", f"{name}.fits", "-tiff", f"{name}.tif", "-jpg", f"{name}.jpg",
+                      "-log", "", *flags, "stretch", "stack_osc12_G.fits"],
+                f"chip_smoke_{name}.log")
+            counts = kernels.launch_counts()
+            for k, v in counts.items():
+                totals[k] += v
+            per_stack[name] = counts
+            walls[name] = seconds
+            peaks[name] = torch.cuda.max_memory_allocated() / (1 << 30)
+            rounds = [ln for ln in log.splitlines() if "Linear location" in ln]
+            say(f"{name} ({' '.join(flags) or 'defaults'}): rc {rc} wall {seconds:.2f} s peak "
+                f"{peaks[name]:.2f} GiB launches {counts} rounds {rounds}")
+            check(rc == 0 and "Error:" not in log, f"{name}: rc {rc}; log tail: {log[-2000:]}")
+            check(len(rounds) > 0, f"{name}: no auto-stretch round")
+            for text in (("Gaussian blur kernel", "Unsharp masking kernel") if flags else ()):
+                check(text in log, f"{name}: '{text}' missing")
+            check(counts["gather_patches"] > 0, f"{name}: gather_patches never launched")
+            check_output(nlfits, f"{name}.fits", size)
+            for ext in ("tif", "jpg"):
+                check(os.path.getsize(f"{name}.{ext}") > 0, f"{name}: empty .{ext}")
+        os.chdir(work)
+        shutil.rmtree(osc, ignore_errors=True)
+
         small_gpu_vs_cpu(cli, nlfits, fixtures, work, "defaults", ())
         small_gpu_vs_cpu(cli, nlfits, fixtures, work, "mad_lsEst1",
                          ("-stMode", "4", "-lsEst", "1"))
+        sdir = small_gpu_vs_cpu(cli, nlfits, fixtures, work, "osc_G_mode3",
+                                ("-cfa", "RGGB", "-debayer", "G", "-stMode", "3"), bayer="RGGB")
+        small_stretch_gpu_vs_cpu(cli, nlfits, sdir)
     finally:
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
@@ -689,7 +829,7 @@ def main() -> int:
         row["launches_per_stack"] = {name: c[row["kernel"]] for name, c in per_stack.items()
                                      if c.get(row["kernel"], 0) > 0}
     say(json.dumps({"buckets": buckets}))
-    say(json.dumps({"stack_walls_s": walls}))
+    say(json.dumps({"stack_walls_s": walls, "osc_stretch_peak_gib": peaks}))
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -1,7 +1,8 @@
 """Command-line interface of the port, mirror of nightlight_tpu/cli.py
 (reference: cmd/nightlight/main.go): the same flags, per-command defaults,
-%auto filename derivation, job-JSON echo and log lines. The ``stack``
-command runs; the other processing commands are queued in ROADMAP.md.
+%auto filename derivation, job-JSON echo and log lines. The ``stack`` and
+``stretch`` commands run; the other processing commands are queued in
+ROADMAP.md.
 
 On a machine with a GPU the pipeline runs on cuda:0, with TF32 disabled for
 matrix products and cuDNN so float32 math stays float32.

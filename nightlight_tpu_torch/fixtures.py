@@ -4,22 +4,29 @@ The default recipe and seed of scripts/gen_fixtures.py (which imports the
 JAX package): mono BITPIX-16 light frames with BZERO 32768, a master dark
 they sit on, 40 gaussian stars of fwhm 8 px drifting (4, -3) px per frame,
 and approximately gaussian sky noise (sum of three uniform u16 draws). The
-same seed gives the same files as that script.
+same seed gives the same files as that script. With a CFA pattern (bayer=,
+or --bayer on the command line) each light is a one-shot-colour mosaic:
+the signal above the dark scales by the pixel's channel gain, R 1.0, G 0.8,
+B 0.6; the master dark stays mono.
 
-    python -m nightlight_tpu_torch.fixtures OUTDIR [N_FRAMES] [SIZE]
+    python -m nightlight_tpu_torch.fixtures OUTDIR [N_FRAMES] [SIZE] [--bayer RGGB]
 """
 
 from __future__ import annotations
 
+import argparse
 import os
-import sys
 
 import numpy as np
 
+CHANNEL_GAINS = {"R": 1.0, "G": 0.8, "B": 0.6}
 
-def gen(outdir: str, n_frames: int = 24, size: int = 4096, seed: int = 7) -> list[str]:
-    """Write `n_frames` mono lights (light000.fits ...) and dark.fits of
-    size x size pixels into outdir. Returns the light file names."""
+
+def gen(outdir: str, n_frames: int = 24, size: int = 4096, seed: int = 7,
+        bayer: str | None = None) -> list[str]:
+    """Write `n_frames` lights (light000.fits ...) and dark.fits of size x
+    size pixels into outdir, mosaicked in the CFA pattern `bayer` when one
+    is given. Returns the light file names."""
     os.makedirs(outdir, exist_ok=True)
     rng = np.random.default_rng(seed)
     h = w = size
@@ -42,6 +49,13 @@ def gen(outdir: str, n_frames: int = 24, size: int = 4096, seed: int = 7) -> lis
             acc += rng.integers(0, 1 << 16, size=(h, w), dtype=np.uint16)
         return (acc - 98302.5) * np.float32(sigma / 32768.0) + np.float32(loc)
 
+    gain_map = None
+    if bayer:
+        cfa = bayer.upper()
+        tile = np.array([[CHANNEL_GAINS[cfa[0]], CHANNEL_GAINS[cfa[1]]],
+                         [CHANNEL_GAINS[cfa[2]], CHANNEL_GAINS[cfa[3]]]], np.float32)
+        gain_map = np.tile(tile, (h // 2, w // 2))
+
     names = []
     for i in range(n_frames):
         img = dark + _noise(900.0, 20.0)
@@ -54,6 +68,8 @@ def gen(outdir: str, n_frames: int = 24, size: int = 4096, seed: int = 7) -> lis
             blob = flux[j] / (2 * np.pi * s * s) * np.exp(
                 -(((xx + icx - cx) ** 2) + ((yy + icy - cy) ** 2)) / (2 * s * s))
             img[icy - patch_r:icy + patch_r + 1, icx - patch_r:icx + patch_r + 1] += blob
+        if gain_map is not None:
+            img = dark + (img - dark) * gain_map
         # quantize to BITPIX 16, BZERO 32768: floor(x+0.5), sign bit flipped
         np.clip(img, 0, 65535, out=img)
         img += 0.5
@@ -88,8 +104,17 @@ def _write_fits16(name: str, signed: np.ndarray, w: int, h: int) -> None:
             f.write(b"\0" * (2880 - pad))
 
 
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description="Write synthetic BITPIX-16 lights and a dark.")
+    ap.add_argument("outdir")
+    ap.add_argument("n_frames", nargs="?", type=int, default=24)
+    ap.add_argument("size", nargs="?", type=int, default=4096)
+    ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--bayer", default=None, help="CFA pattern of one-shot-colour lights, e.g. RGGB")
+    a = ap.parse_args(argv)
+    names = gen(a.outdir, a.n_frames, a.size, a.seed, a.bayer)
+    print(f"wrote {len(names)} lights + dark.fits to {a.outdir}")
+
+
 if __name__ == "__main__":
-    out = sys.argv[1]
-    n = int(sys.argv[2]) if len(sys.argv) > 2 else 24
-    sz = int(sys.argv[3]) if len(sys.argv) > 3 else 4096
-    print(f"wrote {len(gen(out, n, sz))} lights + dark.fits to {out}")
+    main()

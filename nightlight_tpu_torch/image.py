@@ -124,6 +124,40 @@ class Image:
         return self.data.detach().to("cpu", torch.float32).numpy()
 
 
+def bin_block_mean(d: torch.Tensor, n: int) -> torch.Tensor:
+    """Mean of each n x n block over the last two axes, the trailing rows
+    and columns that do not fill a block dropped. The block sums in the
+    order XLA's CPU code sums a (1, 3)-axis mean of a power-of-two number
+    of block columns, so there the port's bins equal the JAX package's: a
+    2x2 block as its two row sums added, a larger one element by element in
+    row order; then one multiplication by the float32 reciprocal of the
+    count. Other widths XLA sums in row order, 1 ulp apart at most."""
+    h, w = d.shape[-2], d.shape[-1]
+    bh, bw = h // n, w // n
+    blocks = d[..., :bh * n, :bw * n].reshape(*d.shape[:-2], bh, n, bw, n)
+    if n == 2:
+        acc = ((blocks[..., 0, :, 0] + blocks[..., 0, :, 1])
+               + (blocks[..., 1, :, 0] + blocks[..., 1, :, 1]))
+    else:
+        acc = blocks[..., 0, :, 0]
+        for i in range(n):
+            for j in range(n):
+                if i or j:
+                    acc = acc + blocks[..., i, :, j]
+    return acc * torch.tensor(1.0 / (n * n), dtype=torch.float32, device=d.device)
+
+
+def bin_nxn(img: Image, n: int) -> Image:
+    """NxN average-pooling downsample (fits.go:163-195)."""
+    n = int(n)
+    binned = bin_block_mean(img.data, n)
+    naxisn = [binned.shape[-1], binned.shape[-2]] + ([binned.shape[0]] if binned.dim() == 3
+                                                      else [])
+    out = Image.from_naxisn(naxisn, binned, ls_mode=img.stats.mode if img.stats else None)
+    out.id, out.file_name, out.exposure = img.id, img.file_name, img.exposure
+    return out
+
+
 def image_from_stars(img: Image, hfr_multiple: float = 2.0) -> Image:
     """Render the detected stars of `img` as filled discs of radius
     hfr * hfr_multiple and value mass / (pi radius^2), later stars over

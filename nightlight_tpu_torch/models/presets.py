@@ -1,7 +1,7 @@
 """Pipeline presets, mirror of nightlight_tpu/models/presets.py: the
 operator DAG of a CLI command (reference: cmd/nightlight/main.go:285-405).
-The port builds the ``stack`` command; the other commands are queued in
-ROADMAP.md."""
+The port builds the ``stack`` and ``stretch`` commands; the others are
+queued in ROADMAP.md."""
 
 from __future__ import annotations
 
@@ -123,9 +123,12 @@ def build_command_seq(args):
     from nightlight_tpu_torch.pipeline.ops_pre import OpDebayer, OpStarDetect
     from nightlight_tpu_torch.pipeline.ops_ref import OpFilter, OpSelectReference, SelRefTarget
     from nightlight_tpu_torch.pipeline.ops_stack import OpStack, OpStackBatches
+    from nightlight_tpu_torch.pipeline.ops_stretch import (
+        OpGamma, OpGammaPP, OpGaussianBlur, OpMidtones, OpNormalizeRange, OpScaleBlack,
+        OpStretchIterative, OpUnsharpMask)
 
     cmd = args.command
-    if cmd != "stack":
+    if cmd not in ("stack", "stretch"):
         raise NotImplementedError(f"the '{cmd}' command is not ported yet (queued in ROADMAP.md)")
 
     op_load_many = OpLoadMany(file_patterns=list(args.files))
@@ -135,6 +138,28 @@ def build_command_seq(args):
         in_out_ratio=args.starInOut,
         save=OpSave(file_pattern=args.stars, export_mode=int(ExportMode.MinMax), gamma=1))
     op_preproc = build_preprocess_seq(args, op_star_detect, op_debayer)
+
+    if cmd == "stretch":
+        return OpSequence(steps=[
+            op_load_many,
+            OpNormalizeRange(),
+            OpStretchIterative(location=args.autoLoc / 100, scale=args.autoScale / 100),
+            OpMidtones(mid=args.midtone, black=args.midBlack),
+            OpGamma(gamma=args.gamma),
+            OpGammaPP(gamma=args.ppGamma, sigma=args.ppSigma),
+            OpScaleBlack(location=args.scaleBlack / 100),
+            op_star_detect,
+            OpSelectReference(target=int(SelRefTarget.Align), mode=args.alignRef,
+                              star_detect=op_star_detect),
+            OpAlign(k=args.alignK, threshold=args.alignT,
+                    oob_mode=int(OutOfBoundsMode.OwnLocation)),
+            OpGaussianBlur(sigma=args.blurSigma),
+            OpUnsharpMask(sigma=args.usmSigma, gain=args.usmGain, threshold=args.usmThresh),
+            OpSave(file_pattern=args.out, export_mode=int(ExportMode.MinMax), gamma=1),
+            OpSave(file_pattern=args.tiff, export_mode=int(ExportMode.Zero1), gamma=1),
+            OpSave(file_pattern=args.jpg, export_mode=int(ExportMode.Zero1), gamma=args.jpgGamma),
+        ])
+
     fused_spec, fused_reason = _fused_spec_from_seq(op_preproc, args)
     return OpSequence(steps=[
         op_load_many,

@@ -1,31 +1,17 @@
-"""Preprocessing operators (reference: internal/ops/pre/), mirror of
-nightlight_tpu/pipeline/ops_pre.py.
-
-Ported in full: calibrate, badPixel (mono) and starDetect. The stack preset
-also builds debayer, debandHoriz/Vert, scaleOffset, bin and backExtract;
-the port carries them with their JSON parameters and runs them in the
-no-op form the CLI defaults give. Any active setting raises
-NotImplementedError (the stages are queued in ROADMAP.md).
-"""
+"""Preprocessing operators: calibrate, badPixel, debayer, deband,
+scaleOffset, bin, starDetect, backExtract (reference: internal/ops/pre/),
+mirror of nightlight_tpu/pipeline/ops_pre.py."""
 
 from __future__ import annotations
 
-from nightlight_tpu_torch.image import Image
+import numpy as np
+
+from nightlight_tpu_torch.image import Image, bin_nxn
+from nightlight_tpu_torch.ops import pixelmath as pm
 from nightlight_tpu_torch.ops import prestack as ps
 from nightlight_tpu_torch.pipeline.context import Context
 from nightlight_tpu_torch.pipeline.operators import (
     OpLoad, UnaryOperator, materialize_all, register)
-
-
-class _NoopOnlyOperator(UnaryOperator):
-    """A preset stage the port runs only in its no-op form."""
-
-    def apply(self, f: Image, c: Context) -> Image:
-        if self.is_noop():
-            return f
-        raise NotImplementedError(
-            f"operator '{self.TYPE}' with {self.to_dict()} is not ported yet "
-            "(queued in ROADMAP.md)")
 
 
 @register
@@ -83,8 +69,8 @@ class OpCalibrate(UnaryOperator):
 
 @register
 class OpBadPixel(UnaryOperator):
-    """Bad-pixel detection and cosmetic repair (pre/preprocess.go:145-201).
-    The CFA-aware variant (a configured debayer channel) is not ported."""
+    """Bad-pixel detection and cosmetic repair (pre/preprocess.go:145-201),
+    CFA-aware when a debayer channel is configured."""
 
     TYPE = "badPixel"
     PARAMS = {"sigma_low": ("sigmaLow", 3.0), "sigma_high": ("sigmaHigh", 5.0)}
@@ -99,9 +85,20 @@ class OpBadPixel(UnaryOperator):
     def apply(self, f: Image, c: Context) -> Image:
         if self.is_noop():
             return f
-        if self.debayer is not None and getattr(self.debayer, "channel", ""):
-            raise NotImplementedError("CFA-aware bad-pixel repair is not ported yet "
-                                      "(queued in ROADMAP.md)")
+        debayer = self.debayer
+        if debayer is not None and getattr(debayer, "channel", ""):
+            # median_diff_stats stays unset: detection then estimates it on
+            # the final (debayered) image
+            corrected, n_removed = ps.cosmetic_correction_bayer(
+                f.data, debayer.channel, debayer.color_filter_array, self.sigma_low,
+                self.sigma_high)
+            f.set_data(corrected)
+            n_removed = int(n_removed)
+            # float32 n * (100 / pixels), as the JAX package formats it
+            c.logf("%d: Removed %d bad bayer pixels (%.2f%%) with sigma low=%.2f high=%.2f\n",
+                   f.id, n_removed, np.float32(n_removed) * np.float32(100.0 / f.pixels),
+                   self.sigma_low, self.sigma_high)
+            return f
         from nightlight_tpu_torch.ops.stats import Stats
 
         repaired, n_bad, diff_std = ps.bad_pixel_repair(f.data, self.sigma_low, self.sigma_high)
@@ -114,7 +111,7 @@ class OpBadPixel(UnaryOperator):
 
 
 @register
-class OpDebayer(_NoopOnlyOperator):
+class OpDebayer(UnaryOperator):
     """Bilinear single-channel debayer (pre/preprocess.go:203-249)."""
 
     TYPE = "debayer"
@@ -123,33 +120,64 @@ class OpDebayer(_NoopOnlyOperator):
     def is_noop(self) -> bool:
         return not self.channel or not self.color_filter_array
 
+    def apply(self, f: Image, c: Context) -> Image:
+        if self.is_noop():
+            return f
+        out = ps.debayer_bilinear(f.data, self.channel, self.color_filter_array)
+        f.set_data(out, naxisn=[out.shape[1], out.shape[0]])
+        c.logf("%d: Debayered channel %s from cfa %s, new size %dx%d\n",
+               f.id, self.channel, self.color_filter_array, f.naxisn[0], f.naxisn[1])
+        return f
+
+
+class _Deband(UnaryOperator):
+    """Banding removal along rows (horizontal) or columns (vertical); the
+    threshold from the current image's location and scale."""
+
+    PARAMS = {"percentile": ("percentile", 50.0), "window": ("window", 128),
+              "sigma": ("sigma", 3.0)}
+    HORIZONTAL = True
+    LOG = ""
+
+    def is_noop(self) -> bool:
+        # window <= 0 is a no-op in both directions (the reference's
+        # vertical op would panic, banding.go:199,256-259)
+        return self.percentile <= 0 or self.percentile >= 100 or self.window <= 0
+
+    def apply(self, f: Image, c: Context) -> Image:
+        if self.is_noop():
+            return f
+        from nightlight_tpu_torch.ops.deband import deband
+
+        loc, scale = (f.stats.location, f.stats.scale) if self.sigma != 0 else (0.0, 0.0)
+        out, lo, hi, threshold = deband(f.data, self.percentile, self.window, self.sigma,
+                                        loc, scale, self.HORIZONTAL)
+        f.set_data(out)
+        c.logf(self.LOG, f.id, self.percentile, self.window, self.sigma, threshold, lo, hi)
+        return f
+
 
 @register
-class OpDebandHoriz(_NoopOnlyOperator):
+class OpDebandHoriz(_Deband):
     """Horizontal banding removal (pre/banding.go:28-132)."""
 
     TYPE = "debandHoriz"
-    PARAMS = {"percentile": ("percentile", 50.0), "window": ("window", 128),
-              "sigma": ("sigma", 3.0)}
-
-    def is_noop(self) -> bool:
-        return self.percentile <= 0 or self.percentile >= 100 or self.window <= 0
+    LOG = ("%d: De-banded horizontally with %.3fth percentile, window %d, sigma %.2f, "
+           "threshold %.2f, factors in [%.3f, %.3f]\n")
 
 
 @register
-class OpDebandVert(_NoopOnlyOperator):
+class OpDebandVert(_Deband):
     """Vertical banding removal (pre/banding.go:164-269)."""
 
     TYPE = "debandVert"
-    PARAMS = {"percentile": ("percentile", 50.0), "window": ("window", 128),
-              "sigma": ("sigma", 3.0)}
-
-    def is_noop(self) -> bool:
-        return self.percentile <= 0 or self.percentile >= 100 or self.window <= 0
+    HORIZONTAL = False
+    LOG = ("%d: De-banded vertically with %.3fth percentile, window %d and sigma %.2f, "
+           "threshold %.2f, factors in [%.3f, %.3f]\n")
 
 
 @register
-class OpScaleOffset(_NoopOnlyOperator):
+class OpScaleOffset(UnaryOperator):
     """Pixel math x*scale + offset (pre/preprocess.go:251-291)."""
 
     TYPE = "scaleOffset"
@@ -158,9 +186,19 @@ class OpScaleOffset(_NoopOnlyOperator):
     def is_noop(self) -> bool:
         return self.scale == 1 and self.offset == 0
 
+    def apply(self, f: Image, c: Context) -> Image:
+        if self.is_noop():
+            return f
+        c.logf("%d: Applying pixel math x = x * %.3f + %.3f%%\n",
+               f.id, self.scale, self.offset * 100)
+        f.data = pm.scale_offset(f.data, self.scale, self.offset)
+        f.stats.replace_data(f.data)
+        f.stats.update_cached_with(self.scale, self.offset)
+        return f
+
 
 @register
-class OpBin(_NoopOnlyOperator):
+class OpBin(UnaryOperator):
     """NxN average-pooling binning (pre/preprocess.go:293-331)."""
 
     TYPE = "bin"
@@ -168,6 +206,14 @@ class OpBin(_NoopOnlyOperator):
 
     def is_noop(self) -> bool:
         return self.bin_size <= 1
+
+    def apply(self, f: Image, c: Context) -> Image:
+        if self.is_noop():
+            return f
+        f = bin_nxn(f, self.bin_size)
+        c.logf("%d: After %dx%d binning, new image size %dx%d\n",
+               f.id, self.bin_size, self.bin_size, f.naxisn[0], f.naxisn[1])
+        return f
 
 
 @register
@@ -211,7 +257,7 @@ class OpStarDetect(UnaryOperator):
 
 
 @register
-class OpBackExtract(_NoopOnlyOperator):
+class OpBackExtract(UnaryOperator):
     """Automated background extraction (pre/preprocess.go:333-399)."""
 
     TYPE = "backExtract"
@@ -225,3 +271,20 @@ class OpBackExtract(_NoopOnlyOperator):
 
     def is_noop(self) -> bool:
         return self.grid_size <= 0
+
+    def apply(self, f: Image, c: Context) -> Image:
+        if self.is_noop():
+            return f
+        from nightlight_tpu_torch.ops.background import Background
+
+        bg = Background(f.data, self.grid_size, self.sigma, self.clip, f.stars, self.hfr_factor)
+        c.logf("%d: %s\n", f.id, bg)
+        save = self.save
+        if save is not None and getattr(save, "file_pattern", ""):
+            bg_img = Image.from_naxisn(list(f.naxisn), bg.render())
+            bg_img.id = f.id
+            save.apply(bg_img, c)
+            f.set_data(ps.subtract(f.data, bg_img.data))
+        else:
+            f.set_data(bg.subtract(f.data))
+        return f

@@ -5,8 +5,10 @@ fixtures.py (BITPIX-16 lights and a master dark, seed 7) in its auto mode
 at 30, 16 and 8 lights (linear fit, winsorized and sigma clip, each with
 its goal-seek), with -stMode 4 at 30 (MAD, kernel K3 on the fused path) and
 with -stMode 0 -lsEst 1 at 16 (median through K3 on the per-frame path,
-whose preprocess falls under "rest"), the flags of chip_smoke.py. Each
-configuration runs
+whose preprocess falls under "rest"), and osc12_G, 12 RGGB mosaics of the
+same recipe with -debayer G -stMode 3 (BASELINE config #3: the CFA repair
+and the debayer run inside the fused preprocess), the flags of
+chip_smoke.py. Each configuration runs
 `--warmup` times, then once measured with every phase function wrapped:
 the wrapper synchronises the card on entry and exit and books the time
 to its phase, less the time of phases nested inside it (star detection
@@ -15,7 +17,7 @@ phase: operator dispatch, reference selection, histogram match and the
 host work between phases.
 
     python -m nightlight_tpu_torch.scripts.phase_split [--size 4096] [--warmup 2] \
-        [--configs mad30,median16_lsEst1] [--out FILE --tag TEXT]
+        [--configs mad30,median16_lsEst1,osc12_G] [--out FILE --tag TEXT]
     python -m nightlight_tpu_torch.scripts.phase_split --summarise FILE
 
 Prints one JSON line per configuration: the wall, the seconds of each
@@ -64,10 +66,11 @@ PHASES = {
                                      "find_sigmas_and_stack")],
     "save (FITS)": [("nightlight_tpu_torch.io.fits", "write_file")],
 }
-# name, lights, extra CLI flags
-CONFIGS = (("auto30", 30, ()), ("auto16", 16, ()), ("auto8", 8, ()),
-           ("mad30", 30, ("-stMode", "4")),
-           ("median16_lsEst1", 16, ("-stMode", "0", "-lsEst", "1")))
+# name, lights, extra CLI flags, CFA pattern of the lights (None: mono)
+CONFIGS = (("auto30", 30, (), None), ("auto16", 16, (), None), ("auto8", 8, (), None),
+           ("mad30", 30, ("-stMode", "4"), None),
+           ("median16_lsEst1", 16, ("-stMode", "0", "-lsEst", "1"), None),
+           ("osc12_G", 12, ("-cfa", "RGGB", "-debayer", "G", "-stMode", "3"), "RGGB"))
 BUILD = Path(__file__).resolve().parents[2] / "build"
 
 
@@ -126,7 +129,7 @@ def phases_wrapped(clock: PhaseClock):
 
 
 def run_stack(lights, out: str, flags=()) -> float:
-    args = ["-out", out, "-dark", "dark.fits", "-jpg", "", "-log", "", *flags, "stack", *lights]
+    args = ["-out", out, "-jpg", "", "-log", "", *flags, "stack", *lights]
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         rc = cli.main(args)
@@ -185,20 +188,26 @@ def main(argv=None) -> list:
     work = tempfile.mkdtemp(prefix="phase-split-", dir=BUILD)
     cwd = os.getcwd()
     try:
-        lights = [os.path.basename(p) for p in fixtures.gen(work, 30, opts.size, seed=7)]
-        os.chdir(work)
         chosen = opts.configs.split(",")
         unknown = set(chosen) - {c[0] for c in CONFIGS}
         if unknown:
             raise SystemExit(f"phase_split: unknown configurations {sorted(unknown)}")
-        for name, n, flags in (c for c in CONFIGS if c[0] in chosen):
+        lights = {}  # CFA pattern (None: mono) -> light paths relative to work
+        for bayer in dict.fromkeys(c[3] for c in CONFIGS if c[0] in chosen):
+            sub = os.path.join(work, bayer or "mono")
+            n_max = max(c[1] for c in CONFIGS if c[0] in chosen and c[3] == bayer)
+            lights[bayer] = [os.path.relpath(p, work)
+                             for p in fixtures.gen(sub, n_max, opts.size, seed=7, bayer=bayer)]
+        os.chdir(work)
+        for name, n, flags, bayer in (c for c in CONFIGS if c[0] in chosen):
+            flags = ("-dark", os.path.join(bayer or "mono", "dark.fits"), *flags)
             for _ in range(opts.warmup):
-                run_stack(lights[:n], f"{name}.fits", flags)
+                run_stack(lights[bayer][:n], f"{name}.fits", flags)
             clock = PhaseClock()
             kernels.reset_launch_counts()
             with phases_wrapped(clock):
-                wall = run_stack(lights[:n], f"{name}.fits", flags)
-            row = {"config": name, "tag": opts.tag, "lights": n, "flags": list(flags),
+                wall = run_stack(lights[bayer][:n], f"{name}.fits", flags)
+            row = {"config": name, "tag": opts.tag, "lights": n, "flags": list(flags[2:]),
                    "size": opts.size,
                    "device": torch.cuda.get_device_name(0), "wall_s": wall,
                    "phases_s": dict(clock.seconds, rest=wall - sum(clock.seconds.values())),

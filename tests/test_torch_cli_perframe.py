@@ -105,6 +105,12 @@ def test_mean_stddev_estimator_fails_like_jax(tmp_path):
     (), ("-pre", "p%d.fits"), ("-stars", "s%d.fits"), ("-pre", "p.fits", "-stars", "s.fits"),
     ("-bpSigLow", "0"), ("-starSig", "0"), ("-backGrid", "64", "-back", "b%d.fits"),
     ("-preScale", "2"), ("-post", "q%d.fits", "-batch", "b%d.fits"),
+    ("-debayer", "G"), ("-debayer", "R", "-cfa", "BGGR", "-stMode", "3"),
+    ("-debandH", "50"), ("-debandV", "60", "-debandVSigma", "0"), ("-binning", "2"),
+    ("-preScale", "1.5", "-preOffset", "0.01"),
+    ("-debayer", "R", "-debandH", "50", "-debandV", "50", "-preScale", "1.5", "-binning", "2",
+     "-backGrid", "128", "-backClip", "4"),
+    ("-debayer", "B", "-lsEst", "1"), ("-debayer", "G", "-pre", "p%d.fits"),
 ])
 @pytest.mark.parametrize("no_fused", [False, True])
 def test_fused_reasons_match_jax(monkeypatch, argv, no_fused):
