@@ -46,6 +46,16 @@
    (defaults; -blurSigma 1 -usmSigma 2 -usmGain 1), each writing finite
    FITS, TIFF and JPEG and launching K4; then a small OSC stack and a small
    stretch on the card against the same runs on the CPU.
+5c. The colour commands on channel masters (fixtures.gen_channels, the
+   recipe of scripts/gen_fixtures.py): lrgb_4096, `rgb` on R, G, B, L
+   (gains 1.0, 0.8, 0.6, 1.0) at the CLI defaults (bench.py's bench_rgb
+   with the inputs in the reference's R G B L order), and sho_4096, `rgb` on
+   S, H, O (0.9, 1.0, 0.7) with bench_narrowband's flags; each checked for
+   rc 0, a finite size x size x 3 output and K4 launches, its wall and peak
+   memory printed. Then, at 256^2 or 512^2 with rc 0: a small LRGB on the
+   card against the CPU, `run` on the three examples/*.json jobs on
+   generated inputs, `stats`, a -normHist 3 stack and a stack with an
+   external -alignRef file.
 6. Runs the sort-network microbenchmarks (nightlight_tpu_torch.scripts.
    microbench_layout and microbench_tile) and checks their launches and
    that every variant gives the same value.
@@ -124,6 +134,12 @@ OSC_STACKS = [
 ]
 STRETCHES = [("stretch", ()),
              ("stretch_blur_usm", ("-blurSigma", "1", "-usmSigma", "2", "-usmGain", "1"))]
+SHO_FLAGS = ("-neutSigmaLow", "0.7", "-neutSigmaHigh", "1.0", "-scnr", "0.5", "-chromaBy", "1.2",
+             "-chromaFrom", "295", "-chromaTo", "40", "-rotFrom", "100", "-rotTo", "190",
+             "-rotBy", "-30")
+# name, channel masters (name, gain) in the order given to `rgb`, extra flags
+COLOR_RUNS = [("lrgb_4096", (("r", 1.0), ("g", 0.8), ("b", 0.6), ("l", 1.0)), ()),
+              ("sho_4096", (("s", 0.9), ("h", 1.0), ("o", 0.7)), SHO_FLAGS)]
 
 
 class SmokeFailure(Exception):
@@ -638,6 +654,117 @@ def small_stretch_gpu_vs_cpu(cli, fits_mod, sdir: str) -> None:
           "small stretch gpu vs cpu outside the band")
 
 
+def color_runs(cli, fits_mod, fixtures, kernels, work: str, size: int, record) -> None:
+    """lrgb_4096 and sho_4096 (COLOR_RUNS) at size^2: rc 0, a finite
+    size x size x 3 output, K4 launched; `record(name, counts, seconds)`
+    books each run's launches and wall."""
+    import torch
+
+    for name, channels, flags in COLOR_RUNS:
+        cdir = os.path.join(work, name)
+        names = [os.path.basename(p) for p in
+                 fixtures.gen_channels(cdir, size, seed=7, channels=channels)]
+        os.chdir(cdir)
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        rc, log, seconds = run_cli(cli, ["-out", f"{name}.fits", "-jpg", f"{name}.jpg",
+                                         "-log", "", *flags, "rgb", *names],
+                                   f"chip_smoke_{name}.log")
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / (1 << 30)
+        img = fits_mod.read_file(f"{name}.fits")
+        data = img.to_numpy()
+        finite = bool(np.isfinite(data).all())
+        rounds = len([ln for ln in log.splitlines() if "Linear location" in ln])
+        say(f"{name} (rgb {' '.join(names)} {' '.join(flags) or 'defaults'}): rc {rc} "
+            f"output {img.naxisn} finite {finite} wall {seconds:.2f} s peak {peak:.2f} GiB "
+            f"launches {counts} stretch rounds {rounds}")
+        check(rc == 0 and "Error:" not in log, f"{name}: rc {rc}; log tail: {log[-2000:]}")
+        check(img.naxisn == [size, size, 3] and finite, f"{name}: output {img.naxisn}")
+        check(counts["gather_patches"] > 0, f"{name}: gather_patches never launched")
+        check(rounds > 0 and os.path.getsize(f"{name}.jpg") > 0, f"{name}: no stretch or JPEG")
+        record(name, counts, seconds, peak)
+        os.chdir(work)
+        shutil.rmtree(cdir, ignore_errors=True)
+
+
+def small_rgb_gpu_vs_cpu(cli, fits_mod, fixtures, work: str) -> None:
+    """A 256^2 LRGB through `rgb` on the card and on the CPU: the same
+    auto-stretch rounds, and the outputs within the band the CPU tests hold
+    the port to against the JAX package (tests/test_torch_cli_rgb.py): 2e-5
+    absolute, the typical pixel within 1e-6."""
+    import torch
+
+    sdir = os.path.join(work, "small_rgb")
+    names = [os.path.basename(p) for p in fixtures.gen_channels(
+        sdir, 256, seed=7, channels=(("r", 1.0), ("g", 0.8), ("b", 0.6), ("l", 1.0)))]
+    os.chdir(sdir)
+    args = ["-log", "", "-jpg", "", "rgb", *names]
+    rc_g, log_g, _ = run_cli(cli, ["-out", "g.fits", *args], "chip_smoke_small_rgb_gpu.log")
+    rc_c, log_c, _ = run_cli(cli, ["-out", "c.fits", *args], "chip_smoke_small_rgb_cpu.log",
+                             device=torch.device("cpu"))
+    check(rc_g == 0 and rc_c == 0, f"small rgb: rc gpu {rc_g} cpu {rc_c}")
+    rounds_g = [ln for ln in log_g.splitlines() if "Linear location" in ln]
+    rounds_c = [ln for ln in log_c.splitlines() if "Linear location" in ln]
+    g = check_output(fits_mod, "g.fits", 256, (3, 256, 256))
+    c = check_output(fits_mod, "c.fits", 256, (3, 256, 256))
+    diff = np.abs(g - c)
+    say(f"small rgb gpu vs cpu: rounds {len(rounds_g)} / {len(rounds_c)}, same "
+        f"{rounds_g == rounds_c}; median abs diff {float(np.median(diff)):.3g}, "
+        f"max {float(diff.max()):.3g}")
+    check(rounds_g == rounds_c and len(rounds_g) > 0, "small rgb: rounds differ")
+    check(float(np.median(diff)) <= 1e-6 and float(diff.max()) <= 2e-5,
+          "small rgb gpu vs cpu outside the band")
+
+
+def small_commands(cli, fits_mod, fixtures, work: str) -> None:
+    """`run` on the three example jobs (examples/*.json) on generated
+    inputs at 512^2, `stats`, a -normHist 3 stack and a stack with an
+    external -alignRef file: rc 0 and finite outputs."""
+    from nightlight_tpu_torch.image import Image
+
+    small = 512
+    sdir = os.path.join(work, "small_cmds")
+    lights_dir = os.path.join(sdir, "lights")
+    fixtures.gen(lights_dir, 8, small, seed=11)
+    os.makedirs(os.path.join(sdir, "masters"))
+    os.replace(os.path.join(lights_dir, "dark.fits"), os.path.join(sdir, "masters", "dark.fits"))
+    ramp = np.linspace(0.95, 1.05, small, dtype=np.float32)
+    fits_mod.write_file(Image.from_numpy(np.tile(ramp, (small, 1))),
+                        os.path.join(sdir, "masters", "flat.fits"))
+    for stem, channels in (("lrgb", (("R", 1.0), ("G", 0.8), ("B", 0.6), ("L", 1.0))),
+                           ("nb", (("S2", 0.9), ("Ha", 1.0), ("O3", 0.7)))):
+        for p in fixtures.gen_channels(os.path.join(sdir, stem), small, channels=channels):
+            os.replace(p, os.path.join(sdir, os.path.basename(p).replace("chan_", "stacked_")))
+    shutil.copy(os.path.join(sdir, "lights", "light002.fits"), os.path.join(sdir, "ref.fits"))
+    os.chdir(sdir)
+    jobs = (("stack_l_channel", "stacked_L.fits", (small, small)),
+            ("lrgb_combine", "lrgb.fits", (3, small, small)),
+            ("narrowband_hubble", "hubble.fits", (3, small, small)))
+    for job, out, shape in jobs:
+        shutil.copy(os.path.join(ROOT, "examples", f"{job}.json"), "job.json")
+        rc, log, seconds = run_cli(cli, ["-log", "", "-job", "job.json", "run"],
+                                   f"chip_smoke_run_{job}.log")
+        say(f"run {job}: rc {rc} wall {seconds:.2f} s")
+        check(rc == 0 and "Error:" not in log, f"run {job}: rc {rc}; log tail: {log[-2000:]}")
+        check_output(fits_mod, out, small, shape)
+    lights = sorted(glob.glob("lights/light*.fits"))
+    for name, flags, cmd, text in (
+            ("stats", (), "stats", "writing statistics"),
+            ("normHist3", ("-normHist", "3"), "stack", "after matching reference histogram"),
+            ("alignRef_file", ("-alignRef", "ref.fits"), "stack",
+             "using loaded image -3 as alignment reference")):
+        rc, log, seconds = run_cli(cli, ["-out", f"{name}.fits", "-jpg", "", "-log", "", *flags,
+                                         cmd, *lights], f"chip_smoke_small_{name}.log")
+        say(f"small {name}: rc {rc} wall {seconds:.2f} s")
+        check(rc == 0 and "Error:" not in log and text in log,
+              f"small {name}: rc {rc}; log tail: {log[-2000:]}")
+        if cmd == "stack":
+            check_output(fits_mod, f"{name}.fits", small)
+    os.chdir(work)
+    shutil.rmtree(sdir, ignore_errors=True)
+
+
 def run_microbench(mod, log_name: str):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -804,6 +931,16 @@ def main() -> int:
         os.chdir(work)
         shutil.rmtree(osc, ignore_errors=True)
 
+        def record(name, counts, seconds, peak):
+            for k, v in counts.items():
+                totals[k] += v
+            per_stack[name] = counts
+            walls[name] = seconds
+            peaks[name] = peak
+
+        color_runs(cli, nlfits, fixtures, kernels, work, size, record)
+        small_rgb_gpu_vs_cpu(cli, nlfits, fixtures, work)
+        small_commands(cli, nlfits, fixtures, work)
         small_gpu_vs_cpu(cli, nlfits, fixtures, work, "defaults", ())
         small_gpu_vs_cpu(cli, nlfits, fixtures, work, "mad_lsEst1",
                          ("-stMode", "4", "-lsEst", "1"))
@@ -829,7 +966,7 @@ def main() -> int:
         row["launches_per_stack"] = {name: c[row["kernel"]] for name, c in per_stack.items()
                                      if c.get(row["kernel"], 0) > 0}
     say(json.dumps({"buckets": buckets}))
-    say(json.dumps({"stack_walls_s": walls, "osc_stretch_peak_gib": peaks}))
+    say(json.dumps({"walls_s": walls, "peak_gib": peaks}))
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

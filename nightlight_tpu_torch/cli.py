@@ -1,13 +1,14 @@
 """Command-line interface of the port, mirror of nightlight_tpu/cli.py
 (reference: cmd/nightlight/main.go): the same flags, per-command defaults,
-%auto filename derivation, job-JSON echo and log lines. The ``stack`` and
-``stretch`` commands run; the other processing commands are queued in
-ROADMAP.md.
+%auto filename derivation, job-JSON echo and log lines. Every command runs
+but ``serve`` (queued in ROADMAP.md); ``run`` executes a JSON job file.
 
 On a machine with a GPU the pipeline runs on cuda:0, with TF32 disabled for
 matrix products and cuDNN so float32 math stays float32.
 
     python -m nightlight_tpu_torch.cli -out stacked.fits -dark dark.fits stack 'lights/*.fits'
+    python -m nightlight_tpu_torch.cli -out rgb.fits rgb r.fits g.fits b.fits l.fits
+    python -m nightlight_tpu_torch.cli -log "" -job job.json run
 """
 
 from __future__ import annotations
@@ -315,9 +316,9 @@ def main(argv=None, device=None) -> int:
     if not cmd:
         parser.print_usage()
         return 0
-    pipeline = cmd in ("stats", "stack", "stretch", "rgb", "lrgb")
-    if pipeline:
+    if cmd in ("stats", "stack", "stretch", "rgb", "lrgb"):
         log_writer.write(f"Using location and scale estimator {args.lsEst}\n")
+    pipeline = cmd in ("stats", "stack", "stretch", "rgb", "lrgb", "run")
 
     apply_command_defaults(args)
 
@@ -345,9 +346,16 @@ def main(argv=None, device=None) -> int:
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
                 profiler = torch.profiler.profile(activities=activities)
                 profiler.__enter__()
-            run_op(build_command_seq(args), c)
-        elif cmd in ("run", "serve"):
-            raise NotImplementedError(f"the '{cmd}' command is not ported yet "
+            if cmd == "run":
+                from nightlight_tpu_torch.pipeline import op_from_dict
+
+                with open(args.job) as fh:
+                    content = json.load(fh)
+                run_op(op_from_dict(content), c)
+            else:
+                run_op(build_command_seq(args), c)
+        elif cmd == "serve":
+            raise NotImplementedError("the 'serve' command is not ported yet "
                                       "(queued in ROADMAP.md)")
         elif cmd == "legal":
             log_writer.write(LEGAL)

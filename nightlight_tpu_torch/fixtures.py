@@ -1,4 +1,4 @@
-"""Synthetic FITS fixtures for the stack path, in numpy only.
+"""Synthetic FITS fixtures for the stack and colour paths, in numpy only.
 
 The default recipe and seed of scripts/gen_fixtures.py (which imports the
 JAX package): mono BITPIX-16 light frames with BZERO 32768, a master dark
@@ -7,9 +7,13 @@ and approximately gaussian sky noise (sum of three uniform u16 draws). The
 same seed gives the same files as that script. With a CFA pattern (bayer=,
 or --bayer on the command line) each light is a one-shot-colour mosaic:
 the signal above the dark scales by the pixel's channel gain, R 1.0, G 0.8,
-B 0.6; the master dark stays mono.
+B 0.6; the master dark stays mono. With --channels it writes stacked-master
+channel frames for `rgb`/`lrgb` instead (gen_channels, the recipe of
+scripts/gen_fixtures.py gen_channels): one clean frame per channel of the
+same star field at the channel's gain, chan_<name>.fits.
 
     python -m nightlight_tpu_torch.fixtures OUTDIR [N_FRAMES] [SIZE] [--bayer RGGB]
+    python -m nightlight_tpu_torch.fixtures OUTDIR --channels [--size SIZE]
 """
 
 from __future__ import annotations
@@ -20,6 +24,45 @@ import os
 import numpy as np
 
 CHANNEL_GAINS = {"R": 1.0, "G": 0.8, "B": 0.6}
+LRGB_CHANNELS = (("l", 1.0), ("r", 1.0), ("g", 0.8), ("b", 0.6))
+SHO_CHANNELS = (("s", 0.9), ("h", 1.0), ("o", 0.7))
+
+
+def gen_channels(outdir: str, size: int = 4096, seed: int = 7,
+                 channels: tuple = LRGB_CHANNELS) -> list[str]:
+    """Write one stacked-master frame per (name, gain) of `channels` as
+    BITPIX-16 chan_<name>.fits: 40 gaussian stars of fwhm 8 px at fixed
+    places (the star field of gen), scaled by the gain, on a sky of 800
+    times the gain with noise of 4 times the gain. Returns the file names."""
+    os.makedirs(outdir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    h = w = size
+    n_stars = 40
+    sx = rng.uniform(64, w - 64, n_stars).astype(np.float32)
+    sy = rng.uniform(64, h - 64, n_stars).astype(np.float32)
+    flux = rng.uniform(25000.0, 60000.0, n_stars).astype(np.float32)
+    s = 8.0 / 2.3548
+    patch_r = 24
+    yy, xx = np.mgrid[-patch_r:patch_r + 1, -patch_r:patch_r + 1].astype(np.float32)
+    names = []
+    for name, gain in channels:
+        acc = rng.integers(0, 1 << 16, size=(h, w), dtype=np.uint16).astype(np.float32)
+        for _ in range(2):
+            acc += rng.integers(0, 1 << 16, size=(h, w), dtype=np.uint16)
+        img = (acc - 98302.5) * np.float32(4.0 * gain / 32768.0) + np.float32(800.0 * gain)
+        for j in range(n_stars):
+            icx, icy = int(round(sx[j])), int(round(sy[j]))
+            blob = gain * flux[j] / (2 * np.pi * s * s) * np.exp(
+                -(((xx + icx - sx[j]) ** 2) + ((yy + icy - sy[j]) ** 2)) / (2 * s * s))
+            img[icy - patch_r:icy + patch_r + 1, icx - patch_r:icx + patch_r + 1] += blob
+        np.clip(img, 0, 65535, out=img)
+        img += 0.5
+        raw = img.astype(np.uint16)
+        signed = (raw ^ np.uint16(0x8000)).byteswap().view(">i2")
+        fn = os.path.join(outdir, f"chan_{name}.fits")
+        _write_fits16(fn, signed, w, h)
+        names.append(fn)
+    return names
 
 
 def gen(outdir: str, n_frames: int = 24, size: int = 4096, seed: int = 7,
@@ -108,11 +151,19 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="Write synthetic BITPIX-16 lights and a dark.")
     ap.add_argument("outdir")
     ap.add_argument("n_frames", nargs="?", type=int, default=24)
-    ap.add_argument("size", nargs="?", type=int, default=4096)
+    ap.add_argument("size_pos", metavar="SIZE", nargs="?", type=int, default=4096)
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--bayer", default=None, help="CFA pattern of one-shot-colour lights, e.g. RGGB")
+    ap.add_argument("--channels", action="store_true",
+                    help="write the L, R, G, B channel masters chan_<name>.fits instead")
+    ap.add_argument("--size", type=int, default=None, help="frame edge (same as SIZE)")
     a = ap.parse_args(argv)
-    names = gen(a.outdir, a.n_frames, a.size, a.seed, a.bayer)
+    size = a.size or a.size_pos
+    if a.channels:
+        names = gen_channels(a.outdir, size, a.seed)
+        print(f"wrote {len(names)} channel masters to {a.outdir}")
+        return
+    names = gen(a.outdir, a.n_frames, size, a.seed, a.bayer)
     print(f"wrote {len(names)} lights + dark.fits to {a.outdir}")
 
 

@@ -1,7 +1,6 @@
 """Pipeline presets, mirror of nightlight_tpu/models/presets.py: the
-operator DAG of a CLI command (reference: cmd/nightlight/main.go:285-405).
-The port builds the ``stack`` and ``stretch`` commands; the others are
-queued in ROADMAP.md."""
+operator DAG of a CLI command (reference: cmd/nightlight/main.go:285-405):
+``stats``, ``stack``, ``stretch`` and ``rgb``/``lrgb``."""
 
 from __future__ import annotations
 
@@ -122,15 +121,18 @@ def build_command_seq(args):
     from nightlight_tpu_torch.pipeline.ops_post import OpAlign, OpMatchHistogram, OutOfBoundsMode
     from nightlight_tpu_torch.pipeline.ops_pre import OpDebayer, OpStarDetect
     from nightlight_tpu_torch.pipeline.ops_ref import OpFilter, OpSelectReference, SelRefTarget
+    from nightlight_tpu_torch.pipeline.ops_hsl import (
+        OpHSLApplyLum, OpHSLGamma, OpHSLGammaPP, OpHSLMidtones, OpHSLNeutralizeBackground,
+        OpHSLRotateHue, OpHSLSaturationGamma, OpHSLScaleBlack, OpHSLScaleOffsetChannel,
+        OpHSLSCNR, OpHSLSelectiveSaturation, OpHSLStretchIterative, OpHSLUnsharpMask)
+    from nightlight_tpu_torch.pipeline.ops_rgb import (
+        OpHSLuvToRGB, OpRGBBalance, OpRGBCombine, OpRGBToHSLuv)
     from nightlight_tpu_torch.pipeline.ops_stack import OpStack, OpStackBatches
     from nightlight_tpu_torch.pipeline.ops_stretch import (
         OpGamma, OpGammaPP, OpGaussianBlur, OpMidtones, OpNormalizeRange, OpScaleBlack,
         OpStretchIterative, OpUnsharpMask)
 
     cmd = args.command
-    if cmd not in ("stack", "stretch"):
-        raise NotImplementedError(f"the '{cmd}' command is not ported yet (queued in ROADMAP.md)")
-
     op_load_many = OpLoadMany(file_patterns=list(args.files))
     op_debayer = OpDebayer(channel=args.debayer, color_filter_array=args.cfa)
     op_star_detect = OpStarDetect(
@@ -138,6 +140,9 @@ def build_command_seq(args):
         in_out_ratio=args.starInOut,
         save=OpSave(file_pattern=args.stars, export_mode=int(ExportMode.MinMax), gamma=1))
     op_preproc = build_preprocess_seq(args, op_star_detect, op_debayer)
+
+    if cmd == "stats":
+        return OpSequence(steps=[op_load_many, op_preproc])
 
     if cmd == "stretch":
         return OpSequence(steps=[
@@ -160,6 +165,43 @@ def build_command_seq(args):
             OpSave(file_pattern=args.jpg, export_mode=int(ExportMode.Zero1), gamma=args.jpgGamma),
         ])
 
+    if cmd in ("rgb", "lrgb"):
+        # lrgb is the same DAG: OpRGBCombine takes a 4th input as luminance
+        return OpSequence(steps=[
+            op_load_many,
+            op_star_detect,
+            OpSelectReference(target=int(SelRefTarget.Align), mode="%rgb",
+                              star_detect=op_star_detect),
+            OpRGBCombine(),
+            OpRGBBalance(block=args.balBlock, border=args.balBorder,
+                         skip_bright=args.balSkipBright, skip_dim=args.balSkipDim,
+                         shadows={"R": args.balShR, "G": args.balShG, "B": args.balShB},
+                         highlights={"R": args.balHiR, "G": args.balHiG, "B": args.balHiB}),
+            OpRGBToHSLuv(),
+            OpHSLApplyLum(),
+            OpHSLUnsharpMask(sigma=args.usmSigma, gain=args.usmGain, threshold=args.usmThresh),
+            OpHSLNeutralizeBackground(sigma_low=args.neutSigmaLow,
+                                      sigma_high=args.neutSigmaHigh),
+            OpHSLSaturationGamma(gamma=args.chromaGamma, sigma=args.chromaSigma),
+            OpHSLSelectiveSaturation(from_=args.chromaFrom, to=args.chromaTo,
+                                     factor=args.chromaBy),
+            OpHSLRotateHue(from_=args.rotFrom, to=args.rotTo, offset=args.rotBy,
+                           sigma=args.rotSigma),
+            OpHSLSCNR(factor=args.scnr),
+            OpHSLStretchIterative(location=args.autoLoc / 100, scale=args.autoScale / 100),
+            OpHSLMidtones(mid=args.midtone, black=args.midBlack),
+            OpHSLGamma(gamma=args.gamma),
+            OpHSLGammaPP(gamma=args.ppGamma, sigma=args.ppSigma),
+            OpHSLScaleOffsetChannel(channel_id=2, scale=args.lumScale, offset=args.lumOffset),
+            OpHSLScaleBlack(location=args.scaleBlack / 100),
+            OpHSLuvToRGB(),
+            OpSave(file_pattern=args.out, export_mode=int(ExportMode.MinMax), gamma=1),
+            OpSave(file_pattern=args.tiff, export_mode=int(ExportMode.Zero1), gamma=1),
+            OpSave(file_pattern=args.jpg, export_mode=int(ExportMode.Zero1), gamma=args.jpgGamma),
+        ])
+
+    if cmd != "stack":
+        raise ValueError(f"Unknown command '{cmd}'")
     fused_spec, fused_reason = _fused_spec_from_seq(op_preproc, args)
     return OpSequence(steps=[
         op_load_many,

@@ -71,6 +71,15 @@ def normalize(data: torch.Tensor, vmin, vmax) -> torch.Tensor:
     return fma32(data, scale, -(vmin * scale)).clamp(0.0, 1.0)
 
 
+def scale_offset_clamp_rgb(data: torch.Tensor, alpha, beta) -> torch.Tensor:
+    """Per-channel x*alpha + beta on a (3, H, W) cube, clamped to [0, 1]
+    (pixelops.go:679-692); alpha and beta are (3,) float32 vectors, and
+    x*alpha + beta one fused multiply-add, as XLA contracts it."""
+    alpha = torch.as_tensor(alpha, dtype=torch.float32).to(data.device)[:, None, None]
+    beta = torch.as_tensor(beta, dtype=torch.float32).to(data.device)[:, None, None]
+    return fma32(data, alpha, beta).clamp(0.0, 1.0)
+
+
 def set_black_white(data: torch.Tensor, black_perc: float, white_perc: float,
                     num_bins: int = 65536):
     """Black/white point clip by histogram percentile (pixelops.go:695-744).

@@ -378,6 +378,11 @@ class Stats:
         s._have_stddev = True
         return s
 
+    @classmethod
+    def for_channel(cls, data, width: int, ch: int, mode=None) -> "Stats":
+        """Stats over one channel of a (3, H, W) cube (stats.go:70-76)."""
+        return cls(data[ch], width, mode)
+
     def set_data(self, data) -> None:
         self._data = data
         self.clear()
@@ -461,6 +466,16 @@ class Stats:
             self._noise = float(estimate_noise(d))
             self._have_noise = True
         return self._noise
+
+    def device_location_scale(self) -> tuple[np.float32, np.float32]:
+        """(location, scale) as float32 scalars, the values the JAX package
+        chains into further device programs without a host round trip: the
+        port reads each statistic once, when it is first asked for."""
+        return np.float32(self.location), np.float32(self.scale)
+
+    def device_min_max(self) -> tuple[np.float32, np.float32]:
+        """(min, max) as float32 scalars (see device_location_scale)."""
+        return np.float32(self.min), np.float32(self.max)
 
     def _update_location_scale(self) -> None:
         """Dispatch on the estimator mode (stats.go:225-244)."""

@@ -7,6 +7,9 @@ from nightlight_tpu_torch.pipeline import ops_pre  # noqa: F401
 from nightlight_tpu_torch.pipeline import ops_ref  # noqa: F401
 from nightlight_tpu_torch.pipeline import ops_post  # noqa: F401
 from nightlight_tpu_torch.pipeline import ops_stack  # noqa: F401
+from nightlight_tpu_torch.pipeline import ops_rgb  # noqa: F401
+from nightlight_tpu_torch.pipeline import ops_hsl  # noqa: F401
+from nightlight_tpu_torch.pipeline import ops_stretch  # noqa: F401
 from nightlight_tpu_torch.pipeline.context import Context  # noqa: F401
 from nightlight_tpu_torch.pipeline.operators import (  # noqa: F401
     OpLoad, OpLoadMany, OpSave, OpSequence, Operator, get_operator_factory,

@@ -55,6 +55,7 @@ class Context:
     align_stars: Any = None  # StarList
     align_hfr: float = 0.0
     match_histo: Any = None  # Stats
+    lum_frame: Any = None  # Image: the luminance master of an LRGB combination
     ref_frame_error: Optional[Exception] = None
 
     stats_total: int = 0

@@ -60,9 +60,9 @@ class OpMatchHistogram(UnaryOperator):
                                         c.match_histo.location, c.match_histo.scale)
             f.stats.replace_data(f.data)
             f.stats.update_cached_with(multiplier, offset)
-        else:
-            raise NotImplementedError(f"histogram normalization mode {int(mode)} is not "
-                                      "ported yet (queued in ROADMAP.md)")
+        elif mode == HistoNormMode.LocBlack:
+            f.data = pm.shift_black_to_move(f.data, f.stats.location, c.match_histo.location)
+            f.stats.set_data(f.data)
         c.logf("%d: %s after matching reference histogram %s\n", f.id, f.stats, c.match_histo)
         return f
 

@@ -1,8 +1,8 @@
 """Reference-frame selection, frame filtering and the stats report
 (reference: internal/ops/ref/), mirror of nightlight_tpu/pipeline/ops_ref.py.
 
-Reference selection modes ported: "%starsHFR", "%location", "%rgb" and an
-integer frame ID. An external reference file is not ported yet.
+Reference selection modes: "%starsHFR", "%location", "%rgb", an integer
+frame ID, or the name of an external reference file.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import numpy as np
 from nightlight_tpu_torch.image import Image
 from nightlight_tpu_torch.pipeline.context import Context
 from nightlight_tpu_torch.pipeline.operators import (
-    Operator, UnaryOperator, materialize_all, register)
+    OpLoad, Operator, UnaryOperator, materialize_all, register)
 
 
 class SelRefTarget(IntEnum):
@@ -80,11 +80,19 @@ class OpSelectReference(Operator):
             file_id = int(mode)
         except (TypeError, ValueError):
             pass
+        # an external reference file: loaded (ID -3) and star-detected
+        # without materializing the inputs (refframe.go:118-151)
         if mode not in ("%starsHFR", "%location", "%rgb") and file_id is None:
             if not mode:
                 return
-            raise NotImplementedError("an external reference file is not ported yet "
-                                      "(queued in ROADMAP.md)")
+            promises = OpLoad(id=-3, file_name=mode).make_promises([], c)
+            if self.star_detect is not None:
+                promises = self.star_detect.make_promises(promises, c)
+            ref_frame = promises[0]()
+            self._assign_results(c, ref_frame)
+            c.logf("using loaded image %d as %s reference\n", ref_frame.id,
+                   _TARGET_STRINGS[self.target])
+            return
 
         materialized, err = materialize_all(ins)
         if err is not None:

@@ -1,4 +1,5 @@
-"""Where the wall of a CLI `stack` goes, phase by phase, on an NVIDIA GPU.
+"""Where the wall of a CLI `stack` or `rgb` goes, phase by phase, on an
+NVIDIA GPU.
 
 Runs the port's CLI `stack` on the fixtures of nightlight_tpu_torch/
 fixtures.py (BITPIX-16 lights and a master dark, seed 7) in its auto mode
@@ -8,7 +9,9 @@ with -stMode 0 -lsEst 1 at 16 (median through K3 on the per-frame path,
 whose preprocess falls under "rest"), and osc12_G, 12 RGGB mosaics of the
 same recipe with -debayer G -stMode 3 (BASELINE config #3: the CFA repair
 and the debayer run inside the fused preprocess), the flags of
-chip_smoke.py. Each configuration runs
+chip_smoke.py; and `rgb` on the channel masters of fixtures.gen_channels:
+lrgb_4096 (R, G, B, L at the CLI defaults) and sho_4096 (S, H, O with the
+narrowband flags). Each configuration runs
 `--warmup` times, then once measured with every phase function wrapped:
 the wrapper synchronises the card on entry and exit and books the time
 to its phase, less the time of phases nested inside it (star detection
@@ -17,7 +20,7 @@ phase: operator dispatch, reference selection, histogram match and the
 host work between phases.
 
     python -m nightlight_tpu_torch.scripts.phase_split [--size 4096] [--warmup 2] \
-        [--configs mad30,median16_lsEst1,osc12_G] [--out FILE --tag TEXT]
+        [--configs mad30,median16_lsEst1,osc12_G,lrgb_4096] [--out FILE --tag TEXT]
     python -m nightlight_tpu_torch.scripts.phase_split --summarise FILE
 
 Prints one JSON line per configuration: the wall, the seconds of each
@@ -65,12 +68,32 @@ PHASES = {
     "stack (goal-seek + kernels)": [("nightlight_tpu_torch.ops.findsigma",
                                      "find_sigmas_and_stack")],
     "save (FITS)": [("nightlight_tpu_torch.io.fits", "write_file")],
+    "rgb combine": [("nightlight_tpu_torch.pipeline.ops_rgb", "OpRGBCombine.apply")],
+    "rgb balance": [("nightlight_tpu_torch.pipeline.ops_rgb", "OpRGBBalance.apply")],
+    "HSLuv conversions": [("nightlight_tpu_torch.ops.color", "linrgb_to_hsluv"),
+                          ("nightlight_tpu_torch.ops.color", "hsluv_to_linrgb")],
+    "HSL auto-stretch": [("nightlight_tpu_torch.pipeline.ops_hsl",
+                          "OpHSLStretchIterative.apply")],
+    "HSL operators (other)": [("nightlight_tpu_torch.pipeline.ops_hsl", f"{op}.apply") for op in (
+        "OpHSLApplyLum", "OpHSLNeutralizeBackground", "OpHSLSaturationGamma",
+        "OpHSLSelectiveSaturation", "OpHSLRotateHue", "OpHSLSCNR", "OpHSLMidtones",
+        "OpHSLGamma", "OpHSLGammaPP", "OpHSLScaleOffsetChannel", "OpHSLScaleBlack",
+        "OpHSLUnsharpMask")],
+    "save (TIFF, JPEG)": [("nightlight_tpu_torch.io.tiff", "write_tiff16"),
+                          ("nightlight_tpu_torch.io.jpeg", "write_jpg")],
 }
 # name, lights, extra CLI flags, CFA pattern of the lights (None: mono)
 CONFIGS = (("auto30", 30, (), None), ("auto16", 16, (), None), ("auto8", 8, (), None),
            ("mad30", 30, ("-stMode", "4"), None),
            ("median16_lsEst1", 16, ("-stMode", "0", "-lsEst", "1"), None),
            ("osc12_G", 12, ("-cfa", "RGGB", "-debayer", "G", "-stMode", "3"), "RGGB"))
+SHO_FLAGS = ("-neutSigmaLow", "0.7", "-neutSigmaHigh", "1.0", "-scnr", "0.5", "-chromaBy", "1.2",
+             "-chromaFrom", "295", "-chromaTo", "40", "-rotFrom", "100", "-rotTo", "190",
+             "-rotBy", "-30")
+# name, channel masters (fixtures.gen_channels) in the order given to `rgb`,
+# extra CLI flags
+COLOR_CONFIGS = (("lrgb_4096", (("r", 1.0), ("g", 0.8), ("b", 0.6), ("l", 1.0)), ()),
+                 ("sho_4096", (("s", 0.9), ("h", 1.0), ("o", 0.7)), SHO_FLAGS))
 BUILD = Path(__file__).resolve().parents[2] / "build"
 
 
@@ -128,14 +151,17 @@ def phases_wrapped(clock: PhaseClock):
             setattr(holder, attr, original)
 
 
-def run_stack(lights, out: str, flags=()) -> float:
-    args = ["-out", out, "-jpg", "", "-log", "", *flags, "stack", *lights]
+def run_stack(lights, out: str, flags=(), command: str = "stack") -> float:
+    """The CLI's `command` on `lights`; its wall in seconds. `rgb` also
+    writes its JPEG, as a user's run does."""
+    jpg = out.replace(".fits", ".jpg") if command == "rgb" else ""
+    args = ["-out", out, "-jpg", jpg, "-log", "", *flags, command, *lights]
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         rc = cli.main(args)
     torch.cuda.synchronize()
     if rc != 0:
-        raise RuntimeError(f"stack {out}: rc {rc}")
+        raise RuntimeError(f"{command} {out}: rc {rc}")
     return time.perf_counter() - t0
 
 
@@ -174,7 +200,7 @@ def main(argv=None) -> list:
     ap.add_argument("--out", help="append each JSON line to this file too")
     ap.add_argument("--tag", default="", help="mark of this run's lines in --out")
     ap.add_argument("--summarise", metavar="FILE", help="summarise the A/B lines of FILE")
-    ap.add_argument("--configs", default=",".join(c[0] for c in CONFIGS),
+    ap.add_argument("--configs", default=",".join(c[0] for c in CONFIGS + COLOR_CONFIGS),
                     help="comma-separated configurations to run (default: all)")
     opts = ap.parse_args(argv)
     if opts.summarise:
@@ -189,29 +215,40 @@ def main(argv=None) -> list:
     cwd = os.getcwd()
     try:
         chosen = opts.configs.split(",")
-        unknown = set(chosen) - {c[0] for c in CONFIGS}
+        unknown = set(chosen) - {c[0] for c in CONFIGS + COLOR_CONFIGS}
         if unknown:
             raise SystemExit(f"phase_split: unknown configurations {sorted(unknown)}")
-        lights = {}  # CFA pattern (None: mono) -> light paths relative to work
+        lights = {}  # CFA pattern (None: mono), or colour configuration -> inputs
+        for name, channels, _ in (c for c in COLOR_CONFIGS if c[0] in chosen):
+            lights[name] = [os.path.relpath(p, work) for p in fixtures.gen_channels(
+                os.path.join(work, name), opts.size, seed=7, channels=channels)]
         for bayer in dict.fromkeys(c[3] for c in CONFIGS if c[0] in chosen):
             sub = os.path.join(work, bayer or "mono")
             n_max = max(c[1] for c in CONFIGS if c[0] in chosen and c[3] == bayer)
             lights[bayer] = [os.path.relpath(p, work)
                              for p in fixtures.gen(sub, n_max, opts.size, seed=7, bayer=bayer)]
         os.chdir(work)
-        for name, n, flags, bayer in (c for c in CONFIGS if c[0] in chosen):
-            flags = ("-dark", os.path.join(bayer or "mono", "dark.fits"), *flags)
+        runs = [(name, lights[bayer][:n], ("-dark", os.path.join(bayer or "mono", "dark.fits"),
+                                           *flags), "stack")
+                for name, n, flags, bayer in CONFIGS if name in chosen]
+        runs += [(name, lights[name], flags, "rgb")
+                 for name, _, flags in COLOR_CONFIGS if name in chosen]
+        for name, inputs, flags, command in runs:
             for _ in range(opts.warmup):
-                run_stack(lights[bayer][:n], f"{name}.fits", flags)
+                run_stack(inputs, f"{name}.fits", flags, command)
             clock = PhaseClock()
             kernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
             with phases_wrapped(clock):
-                wall = run_stack(lights[bayer][:n], f"{name}.fits", flags)
-            row = {"config": name, "tag": opts.tag, "lights": n, "flags": list(flags[2:]),
+                wall = run_stack(inputs, f"{name}.fits", flags, command)
+            n = len(inputs)
+            row = {"config": name, "tag": opts.tag, "lights": n,
+                   "flags": list(flags[2:] if command == "stack" else flags),
                    "size": opts.size,
                    "device": torch.cuda.get_device_name(0), "wall_s": wall,
                    "phases_s": dict(clock.seconds, rest=wall - sum(clock.seconds.values())),
-                   "launches": kernels.launch_counts()}
+                   "launches": kernels.launch_counts(),
+                   "peak_gib": torch.cuda.max_memory_allocated() / (1 << 30)}
             print(json.dumps(row), flush=True)
             if out_path:
                 with open(out_path, "a") as f:

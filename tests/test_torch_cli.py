@@ -15,6 +15,7 @@ import torch
 
 from nightlight_tpu import cli as jcli
 from nightlight_tpu.models import presets as jpresets
+from nightlight_tpu.ops import stats as jstats
 from nightlight_tpu_torch import cli as tcli
 from nightlight_tpu_torch.image import Image as TImage
 from nightlight_tpu_torch.io import fits as tfits
@@ -79,18 +80,25 @@ def test_job_json_identical():
 
 def run_main(cli_mod, argv):
     """cli_mod.main(argv); the port's on the CPU, which it takes only when
-    asked."""
+    asked. The JAX CLI sets its package-wide default estimator from -lsEst;
+    the default is restored after the run, so that later tests in the same
+    worker see the JAX package's own default."""
     if cli_mod is tcli:
         return cli_mod.main(argv, device="cpu")
-    return cli_mod.main(argv)
+    saved = jstats.DEFAULT_LS_ESTIMATOR
+    try:
+        return cli_mod.main(argv)
+    finally:
+        jstats.DEFAULT_LS_ESTIMATOR = saved
 
 
 def test_unported_command_reports_error(tmp_path, monkeypatch):
+    """`serve`, the one command not ported, reports so as a CLI error."""
     monkeypatch.chdir(tmp_path)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = run_main(tcli, ["-log", "", "rgb", "x.fits"])
-    assert rc == -1 and "not ported yet" in buf.getvalue()
+        rc = run_main(tcli, ["-log", "", "serve"])
+    assert rc == -1 and "'serve' command is not ported yet" in buf.getvalue()
 
 
 def test_cli_without_a_card_raises(tmp_path, monkeypatch):

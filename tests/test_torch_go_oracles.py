@@ -52,3 +52,123 @@ def test_clip_stack_matches_go_oracle(mode, sig, weighted):
     assert int(cl) == rcl and int(ch) == rch
     assert float(out[17]) == REF_LOC  # the all-NaN pixel
     np.testing.assert_allclose(out.numpy(), ref, rtol=2e-5, atol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# The colour balance and the curves the HSL operators reuse, held against
+# the oracles of the JAX package's colour-balance and point-op tests, with
+# their tolerances
+# ---------------------------------------------------------------------------
+
+
+def test_darkest_block_matches_go_oracle():
+    from nightlight_tpu_torch.ops.rgb import find_darkest_block
+    from test_go_oracles import go_find_darkest_block_oracle
+
+    rng = np.random.default_rng(42)
+    cube = rng.uniform(0.0, 1.0, size=(3, 48, 64)).astype(np.float32)
+    cube[:, 32:40, 16:24] *= 0.05  # an unambiguous darkest block
+    for block, border in ((8, 0.1), (16, 0.1), (8, 0.0), (8, 0.25)):
+        got = find_darkest_block(torch.from_numpy(cube), block, border).numpy()
+        ref = go_find_darkest_block_oracle(cube, block, border)
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+
+
+def _oracle_stars(rng, h, w, n):
+    from nightlight_tpu_torch.detect.stars import StarList
+
+    xs = rng.integers(2, w - 3, n)
+    ys = rng.integers(2, h - 3, n)
+    xs[0], ys[0] = 0, 0  # corner star: window clipped
+    hfrs = rng.uniform(1.0, 4.0, n).astype(np.float32)
+    stars = StarList(x=xs.astype(np.float32), y=ys.astype(np.float32),
+                     value=np.ones(n, np.float32), mass=np.linspace(900, 100, n).astype(np.float32),
+                     hfr=hfrs, count=n)
+    return stars, list(zip(xs.tolist(), ys.tolist(), hfrs.tolist()))
+
+
+@pytest.mark.parametrize("skip", [(0.0, 0.0), (0.2, 0.1)])
+def test_mean_star_intensity_matches_go_oracle(skip):
+    """The host loop and the device version (K4's plain version on the
+    CPU) against meanStarIntensity's oracle."""
+    from nightlight_tpu_torch.ops.rgb import mean_star_intensity, mean_star_intensity_device
+    from test_go_oracles import go_mean_star_intensity_oracle
+
+    rng = np.random.default_rng(42)
+    h, w = 40, 56
+    cube = rng.uniform(0.0, 1000.0, size=(3, h, w)).astype(np.float32)
+    stars, triples = _oracle_stars(rng, h, w, 9)
+    clip = (900.0, 920.0, 940.0)
+    ref = go_mean_star_intensity_oracle(cube, triples, *skip, clip)
+    got = mean_star_intensity(cube, stars, *skip, clip)
+    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=1e-4)
+    dev = mean_star_intensity_device(torch.from_numpy(cube), stars, *skip, clip).numpy()
+    np.testing.assert_allclose(dev, ref, rtol=2e-5, atol=1e-4)
+
+
+def test_all_star_pixels_clipped_gives_zeros_not_go_nan():
+    """Go's 1/0 norm gives NaN when every star pixel is clipped
+    (rgb.go:279-280); the port returns zeros, as the JAX package does."""
+    from nightlight_tpu_torch.detect.stars import StarList
+    from nightlight_tpu_torch.ops.rgb import mean_star_intensity, mean_star_intensity_device
+    from test_go_oracles import go_mean_star_intensity_oracle
+
+    cube = np.full((3, 16, 16), 500.0, np.float32)
+    stars = StarList(x=np.array([8.0], np.float32), y=np.array([8.0], np.float32),
+                     value=np.ones(1, np.float32), mass=np.array([100.0], np.float32),
+                     hfr=np.array([2.0], np.float32), count=1)
+    clip = (1.0, 1.0, 1.0)
+    assert all(np.isnan(v) for v in go_mean_star_intensity_oracle(cube, [(8, 8, 2.0)], 0.0,
+                                                                   0.0, clip))
+    assert mean_star_intensity(cube, stars, 0.0, 0.0, clip) == (0.0, 0.0, 0.0)
+    dev = mean_star_intensity_device(torch.from_numpy(cube), stars, 0.0, 0.0, clip)
+    assert dev.tolist() == [0.0, 0.0, 0.0]
+
+
+def test_black_white_correction_matches_go_oracle():
+    from nightlight_tpu_torch.ops.rgb import RGB, black_white_correction
+    from test_go_oracles import go_black_white_correction_oracle
+
+    rng = np.random.default_rng(42)
+    cs = rng.uniform(0.01, 0.1, 3).astype(np.float32)
+    ch = rng.uniform(0.5, 0.9, 3).astype(np.float32)
+    alpha, beta = black_white_correction(tuple(cs), tuple(ch), RGB(1.0, 1.0, 1.0),
+                                         RGB(1.0, 1.0, 1.0))
+    oalpha, obeta = go_black_white_correction_oracle(cs, ch, (1.0, 1.0, 1.0), (1.0, 1.0, 1.0))
+    np.testing.assert_allclose(alpha, oalpha, rtol=1e-6)
+    np.testing.assert_allclose(beta, obeta, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("mid,black", [(0.25, 0.05), (0.4, 0.0), (0.15, 0.12)])
+def test_midtones_matches_go_oracle(mid, black):
+    """pfMidtones with its pre-clip quirk (out-of-range values land at
+    -clipLow*scaler and scaler, not 0 and 1)."""
+    from nightlight_tpu_torch.ops.pixelmath import midtones
+    from test_go_oracles import go_midtones_oracle
+
+    d = np.random.default_rng(42).uniform(0.0, 1.0, 2048).astype(np.float32)
+    d[:8] = [0.0, 1.0, 0.001, 0.999, 0.25, 0.5, 0.75, 0.1]
+    got = midtones(torch.from_numpy(d), mid, black).numpy()
+    np.testing.assert_allclose(got, go_midtones_oracle(d, mid, black), rtol=2e-5, atol=2e-6)
+
+
+def test_partial_gamma_matches_go_oracle():
+    from nightlight_tpu_torch.ops.pixelmath import partial_gamma
+    from test_go_oracles import go_partial_gamma_oracle
+
+    d = np.random.default_rng(42).uniform(0.0, 1.0, 2048).astype(np.float32)
+    from_, to, g = 0.3, 1.0, 2.2
+    d[:4] = [from_, to, 0.3000001, 0.9999999]  # boundary passthrough
+    got = partial_gamma(torch.from_numpy(d), from_, to, g).numpy()
+    np.testing.assert_allclose(got, go_partial_gamma_oracle(d, from_, to, g), rtol=2e-5,
+                               atol=2e-6)
+    assert got[0] == d[0] and got[1] == d[1]
+
+
+def test_shift_black_matches_go_oracle():
+    from nightlight_tpu_torch.ops.pixelmath import shift_black_to_move
+    from test_go_oracles import go_shift_black_oracle
+
+    d = np.random.default_rng(42).uniform(0.0, 1.0, 1024).astype(np.float32)
+    got = shift_black_to_move(torch.from_numpy(d), 0.2, 0.1).numpy()
+    np.testing.assert_allclose(got, go_shift_black_oracle(d, 0.2, 0.1), rtol=2e-5, atol=1e-6)

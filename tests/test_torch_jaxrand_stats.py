@@ -85,7 +85,10 @@ def test_batched_estimator_equals_per_frame():
         assert float(l1[0]) == float(loc[i]) and float(s1[0]) == float(scale[i])
 
 
-def test_stats_object_and_log_format():
+def test_stats_object_and_log_format(monkeypatch):
+    # both packages' default estimator; the JAX CLI resets the JAX one from
+    # -lsEst, so a CLI run earlier in the worker must not choose it here
+    monkeypatch.setattr(jstats, "DEFAULT_LS_ESTIMATOR", jstats.LSEstimatorMode.SCMedianQn)
     rng = np.random.default_rng(5)
     x = _image(rng, (96, 80))
     js = jstats.Stats(jnp.asarray(x), 80)
