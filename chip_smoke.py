@@ -21,11 +21,16 @@
    on-chip ones also timed against scratch in turns; K4 with K=2048, r=32,
    centres past the edges, the whole call and its C entry alone; K5 column
    and tiled and K6 tiled at 128/256/512/1024 threads per block on (40,
-   2^21) samples. Each row of the kernel table carries the bytes and
+   2^21) samples, the tiled layout in both designs (bulk_ring and the port's
+   first, smem_sort; timed in turns, bulk_ring required the faster) and held bit
+   for bit on three more inputs that take the per-thread path or a partial
+   tile (sort_sum_cases); the ptxas report of the bulk_ring instantiations
+   (registers, no spill). Each row of the kernel table carries the bytes and
    operations of the call, counted from the shapes (stack_work), its bound
    at 3.35 TB/s and 67 TFLOP/s float32, the share of that bound, the
-   launches per stack of step 5, and for K3's median, K4 and K5 the time
-   of the closest single PyTorch call.
+   launches per stack of step 5, and for K3's median and K4 the time of
+   the closest single PyTorch call (K5/K6: none computes the function;
+   x.sum(0) and torch.sort(x, dim=0) are recorded as floors).
 4. Writes BITPIX-16 fixtures (nightlight_tpu_torch/fixtures.py, the recipe
    of scripts/gen_fixtures.py): 30 lights and a master dark.
 5. Runs the port's CLI `stack` with -dark on the first N lights: auto mode
@@ -298,9 +303,9 @@ def bucket_frames(gen, n: int, p: int, device):
     return f.contiguous()
 
 
-def kernel_cases(size: int, stack_cuda, gather_cuda, sortnet_cuda, microbench_layout, kernels):
-    """Each kernel against its plain version on the card. Returns the rows
-    of the kernel table and the bucket timings."""
+def kernel_cases(size: int, stack_cuda, gather_cuda, kernels):
+    """K1-K4 against their plain versions on the card. Returns the rows of
+    the kernel table and the bucket timings."""
     import torch
 
     dev = torch.device("cuda:0")
@@ -512,34 +517,156 @@ def kernel_cases(size: int, stack_cuda, gather_cuda, sortnet_cuda, microbench_la
                  **work, "share_of_bound": work["bound_ms"] / times["ms"]})
     del yy, xx, yy_c, xx_c, pk, pp, ok_k, ok_p, out_k, ok_buf
 
-    # K5 (column, tiled) and K6 (tiled over the block sizes) on the
-    # microbenchmarks' (40, 2^21) input; exact sort and the same row-order
-    # sum, so bit for bit. The closest PyTorch call is x.sum(0): the input
-    # has no 3.0e38 entry, so it is the same sum up to float order.
+    return rows, buckets
+
+
+def edge_rows(gen, p: int, device):
+    """(40, p) float32 columns with what a sort-and-sum must get right, from
+    `gen` and with no NaN: small integers (heavy ties) with -0.0 and 0.0
+    mixed, 1% samples of 3.0e38 and 1% of +inf, one column in 64 wholly
+    3.0e38 and one in 128 wholly +inf."""
+    import torch
+
+    x = torch.randint(-3, 8, (40, p), generator=gen, device=device).to(torch.float32)
+    u = torch.rand((40, p), generator=gen, device=device)
+    x = torch.where((x == 0) & (u < 0.5), torch.full((), -0.0, device=device), x)
+    x = torch.where((u > 0.50) & (u < 0.51), torch.full((), 3.0e38, device=device), x)
+    x = torch.where((u > 0.60) & (u < 0.61), torch.full((), float("inf"), device=device), x)
+    cols = torch.arange(p, device=device)
+    x = torch.where((cols % 64 == 3)[None, :], torch.full((), 3.0e38, device=device), x)
+    x = torch.where((cols % 128 == 5)[None, :], torch.full((), float("inf"), device=device), x)
+    return x.contiguous()
+
+
+def ptxas_entries(ptxas: str, needle: str) -> list:
+    """(function, registers, spill store bytes, spill load bytes) of each
+    entry function of the ptxas report whose name holds `needle`."""
+    found, function = [], None
+    for line in ptxas.splitlines():
+        if "Compiling entry function" in line:
+            function = line.split("'")[1] if "'" in line else line
+        elif function and needle in function:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spill:
+                found.append([function, None, int(spill.group(1)), int(spill.group(2))])
+            regs = re.search(r"Used (\d+) registers", line)
+            if regs and found and found[-1][0] == function:
+                found[-1][1] = int(regs.group(1))
+                function = None
+    return [tuple(f) for f in found]
+
+
+def max_abs_err(out, ref) -> float:
+    """Largest |out - ref|, counting equal values (infinities too) as 0."""
+    import torch
+
+    return float(torch.where(out == ref, 0.0, (out - ref).abs()).max())
+
+
+def sort_sum_cases(sortnet_cuda, microbench_layout) -> list:
+    """K5 (column; tiled) and K6 (tiled at every tile) on the
+    microbenchmarks' (40, 2^21) input. Both tiled designs, bulk_ring and the
+    port's first, smem_sort, are held bit for bit (as int32 words) against the plain
+    version at every tile on four inputs: the microbenchmark's (the bulk
+    path), edge_rows at P = 2^21 - 3 (rows not 16-byte aligned: the
+    per-thread path), its first 2^21 - 4 columns (the bulk path with a
+    partial last tile) and the microbenchmark's rows at a pointer 4 bytes
+    past a 16-byte boundary (the per-thread path). Then each tile is timed
+    in turns (smem_sort, bulk_ring, bulk_ring, smem_sort), and bulk_ring
+    must be the faster at every tile. Returns the kernel table's rows."""
+    import torch
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
     x = microbench_layout.make_input(microbench_layout.P, 0, dev)
+    px = int(x.shape[1])
+    edge = edge_rows(gen, px - 3, dev)
+    flat = torch.empty(40 * px + 4, dtype=torch.float32, device=dev)
+    unaligned = flat[1:1 + 40 * px].view(40, px)
+    unaligned.copy_(x)
+    inputs = [("microbench", x, "bulk"), ("edge P-3", edge, "per_thread"),
+              ("edge P-4", edge[:, :px - 4].contiguous(), "bulk"),
+              ("microbench +4 bytes", unaligned, "per_thread")]
+    checks = {t: [] for t in sortnet_cuda.BLOCK_SIZES}
+    for label, inp, want_path in inputs:
+        ref = sortnet_cuda.sort_sum_plain(inp)
+        col = sortnet_cuda.sort_sum_cuda(inp, "column")
+        check(torch.equal(col.view(torch.int32), ref.view(torch.int32)),
+              f"sort_sum column on {label}: differs from plain")
+        for t in sortnet_cuda.BLOCK_SIZES:
+            plan = sortnet_cuda.sort_sum_plan(inp, t)
+            for design in sortnet_cuda.TILED_DESIGNS:
+                out = sortnet_cuda.sort_sum_cuda(inp, "tiled", t, design)
+                torch.cuda.synchronize()
+                bits = torch.equal(out.view(torch.int32), ref.view(torch.int32))
+                err = max_abs_err(out, ref)
+                path = plan.path if design == "bulk_ring" else "-"
+                tail = inp.shape[1] - plan.bulk_tiles * t if plan.path == "bulk" else 0
+                say(f"sort_sum tiled {design} tile={t} on {label} (40x{inp.shape[1]}): path "
+                    f"{path} (partial tile {tail} px) equal bits {bits} max_abs_err {err:.3g}")
+                check(bits, f"sort_sum tiled {design} tile={t} on {label}: differs from plain")
+                if design == "bulk_ring":
+                    check(plan.path == want_path, f"sort_sum tile={t} on {label}: path "
+                                                  f"{plan.path}, expected {want_path}")
+                    checks[t].append({"input": label, "pixels": int(inp.shape[1]),
+                                      "path": plan.path, "partial_tile_px": tail,
+                                      "bits_equal": bits})
+    del edge, flat, unaligned, inputs, ref, col, out
+    torch.cuda.empty_cache()
+
     ref = sortnet_cuda.sort_sum_plain(x)
     plain_ms = cuda_ms(lambda: sortnet_cuda.sort_sum_plain(x))
-    library_ms = cuda_ms(lambda: x.sum(0), calls=KERNEL_CALLS)
-    px = int(x.shape[1])
+    # no single PyTorch call computes this function: x.sum(0) reads the
+    # block without sorting, torch.sort sorts it without summing (the floor
+    # of any library route); both are recorded, as floors, not library_ms
+    floors = {"x.sum(0)": cuda_ms(lambda: x.sum(0), calls=KERNEL_CALLS),
+              "torch.sort(x, dim=0)": cuda_ms(lambda: torch.sort(x, dim=0), calls=KERNEL_CALLS)}
     work = bound(4.0 * 40 * px + 4.0 * px, (2.0 * batcher_pairs(40) + 39) * px)
-    cases = [("sort_sum column", "column", 256, SORT_REPLACES["column"]),
-             ("sort_sum tiled", "tiled", 256, SORT_REPLACES["tiled"])]
-    cases += [(f"sort_sum tiled tile={t}", "tiled", t, SORT_REPLACES["sweep"])
-              for t in sortnet_cuda.BLOCK_SIZES]
-    for name, layout, threads, replaces in cases:
-        out = sortnet_cuda.sort_sum_cuda(x, layout, threads)
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        times = kernel_ms(lambda: sortnet_cuda.sort_sum_cuda(x, layout, threads))
-        say(f"{name}: 40x{px} max_abs_err {err:.3g} kernel {times['ms']:.4f} ms "
-            f"({times['single_call_ms']:.4f} single call) "
-            f"plain {plain_ms:.3f} ms library {library_ms:.4f} ms bound {work['bound_ms']:.4f} ms")
-        check(torch.equal(out, ref), f"{name}: kernel differs from plain (max abs {err})")
+    say(f"sort_sum: plain {plain_ms:.3f} ms, x.sum(0) {floors['x.sum(0)']:.4f} ms, "
+        f"torch.sort(x, dim=0) {floors['torch.sort(x, dim=0)']:.4f} ms, bound "
+        f"{work['bound_ms']:.4f} ms ({work['bound_by']})")
+    rows = []
+
+    def row(name, replaces, threads, out, times, **extra):
+        err = max_abs_err(out, ref)
+        check(torch.equal(out.view(torch.int32), ref.view(torch.int32)),
+              f"{name}: differs from plain (max abs {err})")
         rows.append({"name": name, "kernel": "sort_sum", "route": "cuda", "source": SORT_SRC,
                      "replaces": replaces, "max_abs_err": err, **times, "plain_ms": plain_ms,
-                     "library_ms": library_ms, "shape": [40, px], "threads": threads,
-                     **work, "share_of_bound": work["bound_ms"] / times["ms"]})
-    return rows, buckets
+                     "library_ms": None, "library_floor_ms": floors, "shape": [40, px],
+                     "threads": threads, **work, "share_of_bound": work["bound_ms"] / times["ms"],
+                     **extra})
+
+    times = kernel_ms(lambda: sortnet_cuda.sort_sum_cuda(x, "column"))
+    say(f"sort_sum column: 40x{px} kernel {times['ms']:.4f} ms ({times['single_call_ms']:.4f} "
+        f"single call), {100 * work['bound_ms'] / times['ms']:.1f}% of bound")
+    row("sort_sum column", SORT_REPLACES["column"], 256, sortnet_cuda.sort_sum_cuda(x, "column"),
+        times, design="column")
+    cases = [("sort_sum tiled", 256, SORT_REPLACES["tiled"])]
+    cases += [(f"sort_sum tiled tile={t}", t, SORT_REPLACES["sweep"])
+              for t in sortnet_cuda.BLOCK_SIZES]
+    for name, t, replaces in cases:
+        def run(design, t=t):
+            return sortnet_cuda.sort_sum_cuda(x, "tiled", t, design)
+
+        turns = [kernel_ms(lambda d=d: run(d))
+                 for d in ("smem_sort", "bulk_ring", "bulk_ring", "smem_sort")]
+        ring = {k: (turns[1][k] + turns[2][k]) / 2 for k in turns[0]}
+        old = {k: (turns[0][k] + turns[3][k]) / 2 for k in turns[0]}
+        plan = sortnet_cuda.sort_sum_plan(x, t)
+        say(f"{name}: bulk_ring {ring['ms']:.4f} ms ({ring['single_call_ms']:.4f} single call, "
+            f"{100 * work['bound_ms'] / ring['ms']:.1f}% of bound), smem_sort {old['ms']:.4f} ms "
+            f"({old['single_call_ms']:.4f}, {100 * work['bound_ms'] / old['ms']:.1f}%); plan "
+            f"{plan.rows_per_stage} rows x {plan.stages} stages, {plan.smem_bytes} B shared, "
+            f"{plan.blocks_per_sm} blocks/SM, grid {plan.grid}, path {plan.path}")
+        check(ring["ms"] < old["ms"], f"{name}: bulk_ring {ring['ms']:.4f} ms not faster than "
+                                      f"smem_sort {old['ms']:.4f} ms")
+        row(name, replaces, t, run("bulk_ring"), ring, design="bulk_ring",
+            rows_per_stage=plan.rows_per_stage, stages=plan.stages, smem_bytes=plan.smem_bytes, blocks_per_sm=plan.blocks_per_sm,
+            grid=plan.grid, path=plan.path, smem_sort_ms=old["ms"],
+            smem_sort_single_call_ms=old["single_call_ms"], turns=turns, checks=checks[t])
+    return rows
 
 
 def spill_summary(ptxas: str) -> str:
@@ -808,9 +935,14 @@ def main() -> int:
     if ptxas:
         write_log("ptxas.txt", ptxas)
         say(spill_summary(ptxas))
+        ring = ptxas_entries(ptxas, "sort_sum_ring_kernel")
+        for function, regs, stores, loads in ring:
+            say(f"ptxas {function}: {regs} registers, spill stores {stores} B, loads {loads} B")
+        check(len(ring) == len(sortnet_cuda.BLOCK_SIZES), f"ptxas: ring kernels {ring}")
+        check(all(r[2] == 0 and r[3] == 0 for r in ring), "ptxas: a ring kernel spills")
 
-    rows, buckets = kernel_cases(opts.size, stack_cuda, gather_cuda, sortnet_cuda,
-                                 microbench_layout, kernels)
+    rows, buckets = kernel_cases(opts.size, stack_cuda, gather_cuda, kernels)
+    rows += sort_sum_cases(sortnet_cuda, microbench_layout)
     torch.cuda.empty_cache()
 
     size = opts.size

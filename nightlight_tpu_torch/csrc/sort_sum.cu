@@ -16,23 +16,39 @@
 // _sortnet_rows). The comparator list comes from the shared schedule of
 // sortnet.cuh at compile time and is unrolled, so each index is a constant.
 //
-// Two layouts, the GPU counterparts of the TPU row layouts:
-//   * column (layout 0): one thread per pixel holds its 40 values in
-//     registers and runs the network there (min/max on registers only);
-//   * tiled (layout 1): a block stages its (40, blockDim) tile in shared
-//     memory, row i of the tile at smem[i * blockDim + t], and each thread
-//     sorts its column there, every compare-exchange a shared-memory round
-//     trip (the VMEM-resident rows of the TPU kernel).
-// The threads per block is the launch parameter that K6 sweeps (128 to
-// 1024): for the tiled layout it is the tile, 160 bytes of shared memory
-// per pixel, so it sets how many blocks fit on an SM.
-//
 // What bounds it on the H100: the input is read once (160 bytes a pixel,
 // 335 MB at P = 2^21) and 4 bytes a pixel written, about 0.1 ms at 3.35
-// TB/s; the network is 305 compare-exchanges (610 min/max) a pixel, 1.3
-// G operations in all. The column layout keeps the network in registers
-// and should sit near the memory bound; the tiled layout adds 4 shared
-// accesses per compare-exchange.
+// TB/s; the network is 305 compare-exchanges (610 min/max) a pixel, about
+// 700 instructions with the sum, 0.05 ms at the issue rate. So the bytes
+// bound it, as long as the column stays in registers.
+//
+// Three kernels, the GPU counterparts of the TPU row layouts:
+//   * column (layout 0): one thread per pixel loads its 40 values into
+//     registers and runs the network there;
+//   * tiled, bulk ring (layout 1, the tiled design): a persistent grid
+//     whose blocks walk tiles of TILE pixel columns; a tile's 40 rows
+//     reach shared memory through a ring of stages of R rows each, filled
+//     by bulk copies (bulk_ring.cuh) while the block sorts an earlier tile;
+//     each thread copies its column's R values of a stage into registers,
+//     the block releases the stage, and the column is sorted in registers.
+//     About 80 shared-memory accesses a pixel: 40 written by the copy
+//     engine, 40 read;
+//   * tiled, shared-memory sort (layout 2, the first design of the port,
+//     kept for comparison): a block stages its (40, blockDim) tile in
+//     shared memory, row i at smem[i * blockDim + t], and each thread sorts
+//     its column there, every compare-exchange a shared-memory round trip
+//     (the VMEM-resident rows of the TPU kernel): about 1,300 shared
+//     accesses a pixel, which the shared-memory port serves at 32 words a
+//     clock, about 0.35 ms for 2^21 pixels.
+// The threads per block is the launch parameter that K6 sweeps (128 to
+// 1024); for the tiled kernels it is the tile.
+//
+// The ring kernel's plan (rows per stage, stages, shared bytes, grid, path)
+// comes from ops/sortnet_cuda.py ring_plan. Its bulk copies need 16-byte
+// aligned rows, so it takes them only when P % 4 == 0 and x is 16-byte
+// aligned; otherwise, and for the last partial tile, the same kernel loads
+// each thread's column with plain loads (the per-thread path).
+#include "bulk_ring.cuh"
 #include "common.cuh"
 #include "sortnet.cuh"
 
@@ -101,22 +117,184 @@ __global__ void sort_sum_tiled_kernel(const float* __restrict__ x, long long P,
     out[p] = sorted_sum(v);
 }
 
+// Registers a thread of the ring kernel may use: the column (40) and the
+// walk's state. __launch_bounds__ holds every instantiation to it, so
+// 65536 / (64 * TILE) blocks fit an SM's registers (ring_target_blocks in
+// ops/sortnet_cuda.py sizes the ring for that many).
+constexpr int kRingRegs = 64;
+constexpr int ring_min_blocks(int tile) { return 65536 / (kRingRegs * tile); }
+constexpr int kBlockSharedBytes = 232448;
+
+// Fill ring stage s with rows [q*R, q*R + R) of tile k: R bulk copies of
+// one contiguous row chunk each, TILE floats, all completing on full[s].
+template <int TILE, int R>
+__device__ __forceinline__ void fill_stage(float* ring_buf, uint64_t* full, int s,
+                                           const float* x, long long P, long long k, int q) {
+    constexpr uint32_t kRowBytes = TILE * sizeof(float);
+    float* stage = ring_buf + (size_t)s * R * TILE;
+    ring::expect_bytes(full + s, R * kRowBytes);
+    const float* src = x + (long long)(q * R) * P + k * TILE;
+#pragma unroll
+    for (int i = 0; i < R; ++i) ring::copy(stage + i * TILE, src + (long long)i * P, kRowBytes,
+                                           full + s);
+}
+
+// The tiled design. Block b takes tiles b, b + gridDim.x, ...; those below
+// `bulk_tiles` (all full, rows 16-byte aligned) come through the ring, the
+// rest (the partial last tile, or every tile on the per-thread path) by
+// plain loads. The block's bulk tiles are a stream of
+// chunks c = j * C + q (its j-th tile, rows q*R .. q*R + R - 1), chunk c in
+// stage c % stages; thread 0 keeps `stages` chunks in flight and refills a
+// stage right after the block barrier that follows every thread's read.
+//
+// Shared memory: the ring (stages * R * TILE floats, from offset 0) and
+// then one 8-byte barrier a stage.
+template <int TILE, int R>
+__global__ void __launch_bounds__(TILE, ring_min_blocks(TILE))
+    sort_sum_ring_kernel(const float* __restrict__ x, long long P, int tiles, int bulk_tiles,
+                         int stages, float* __restrict__ out) {
+    static_assert(kRows % R == 0, "a tile's rows split into whole stages");
+    constexpr int C = kRows / R;  // stages a tile spans
+    extern __shared__ __align__(128) unsigned char smem[];
+    float* ring_buf = reinterpret_cast<float*>(smem);
+    uint64_t* full =
+        reinterpret_cast<uint64_t*>(smem + (size_t)stages * R * TILE * sizeof(float));
+    const int t = threadIdx.x;
+    const int b = blockIdx.x;
+    const int step = gridDim.x;
+    const int own = b < bulk_tiles ? (bulk_tiles - 1 - b) / step + 1 : 0;
+    const int chunks = own * C;
+    if (own > 0) {
+        if (t == 0) {
+            ring::init(full, stages);
+            for (int c = 0; c < stages && c < chunks; ++c)
+                fill_stage<TILE, R>(ring_buf, full, c, x, P, b + (long long)(c / C) * step,
+                                    c % C);
+        }
+        __syncthreads();
+    }
+    Regs v;
+    int s = 0;            // stage of the next chunk
+    uint32_t parity = 0;  // parity of that stage's next fill
+    for (int j = 0; b + (long long)j * step < tiles; ++j) {
+        const long long k = b + (long long)j * step;
+        const long long p = k * TILE + t;
+        if (j < own) {  // uniform across the block: every thread reads and syncs
+#pragma unroll
+            for (int q = 0; q < C; ++q) {
+                ring::wait(full + s, parity);
+                const float* stage = ring_buf + (size_t)s * R * TILE + t;
+#pragma unroll
+                for (int i = 0; i < R; ++i) v[q * R + i] = stage[i * TILE];
+                __syncthreads();  // every thread holds its values of stage s
+                const int next = j * C + q + stages;
+                if (t == 0 && next < chunks)
+                    fill_stage<TILE, R>(ring_buf, full, s, x, P,
+                                        b + (long long)(next / C) * step, next % C);
+                if (++s == stages) {
+                    s = 0;
+                    parity ^= 1u;
+                }
+            }
+        } else if (p < P) {
+#pragma unroll
+            for (int i = 0; i < kRows; ++i) v[i] = x[(long long)i * P + p];
+        }
+        if (p < P) {
+            sort_network(v);
+            out[p] = sorted_sum(v);
+        }
+    }
+}
+
+template <int TILE, int R>
+cudaError_t prepare_ring() {
+    // once per instantiation: allow the largest block ring, and prefer the
+    // largest shared-memory carve-out of the SM's 256 KB
+    static const cudaError_t status = [] {
+        cudaError_t e = cudaFuncSetAttribute(sort_sum_ring_kernel<TILE, R>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             kBlockSharedBytes);
+        if (e == cudaSuccess)
+            e = cudaFuncSetAttribute(sort_sum_ring_kernel<TILE, R>,
+                                     cudaFuncAttributePreferredSharedMemoryCarveout,
+                                     (int)cudaSharedmemCarveoutMaxShared);
+        return e;
+    }();
+    return status;
+}
+
+template <int TILE, int R>
+cudaError_t ring_blocks_per_sm(int smem_bytes, int* blocks) {
+    cudaError_t e = prepare_ring<TILE, R>();
+    if (e != cudaSuccess) return e;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, sort_sum_ring_kernel<TILE, R>,
+                                                         TILE, smem_bytes);
+}
+
+template <int TILE, int R>
+cudaError_t launch_ring(const float* x, long long P, int stages, int smem_bytes, int grid,
+                        int bulk_tiles, float* out, cudaStream_t stream) {
+    const long long tiles = (P + TILE - 1) / TILE;
+    const long long ring_bytes = (long long)stages * (R * TILE * (long long)sizeof(float) + 8);
+    const bool aligned = P % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    // the plan must hold what the bulk copies need; a wrong one is refused
+    if (grid <= 0 || tiles > INT32_MAX || bulk_tiles < 0 || bulk_tiles > P / TILE ||
+        smem_bytes < 0 || smem_bytes > kBlockSharedBytes ||
+        (bulk_tiles > 0 && (!aligned || stages < 2 || smem_bytes < ring_bytes)))
+        return cudaErrorInvalidValue;
+    cudaError_t e = prepare_ring<TILE, R>();
+    if (e != cudaSuccess) return e;
+    sort_sum_ring_kernel<TILE, R><<<grid, TILE, smem_bytes, stream>>>(x, P, (int)tiles,
+                                                                      bulk_tiles, stages, out);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
-// x: (40, P) float32 row-major; out: (P,). layout 0 = column, 1 = tiled.
-extern "C" int nl_sort_sum(const float* x, long long P, int layout, int threads, float* out,
-                           void* stream) {
+// The (tile, rows per stage) pairs that ops/sortnet_cuda.py ring_shape
+// plans; tests/test_torch_sort_sum_plan.py reads this line.
+#define NL_RING_INSTANCES(X) X(128, 10) X(256, 10) X(512, 8) X(1024, 8)
+
+// Blocks of the ring kernel that fit one SM with `smem_bytes` of dynamic
+// shared memory each (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int nl_sort_sum_ring_blocks_per_sm(int threads, int rows_per_stage, int smem_bytes,
+                                              int* blocks) {
+#define NL_RING_OCCUPANCY(T, RR)              \
+    if (threads == T && rows_per_stage == RR) \
+        return (int)ring_blocks_per_sm<T, RR>(smem_bytes, blocks);
+    NL_RING_INSTANCES(NL_RING_OCCUPANCY)
+#undef NL_RING_OCCUPANCY
+    return (int)cudaErrorInvalidValue;
+}
+
+// x: (40, P) float32 row-major; out: (P,). layout 0 = column, 1 = tiled
+// bulk ring (rows_per_stage, stages, smem_bytes, grid and bulk_tiles from
+// ring_plan), 2 = tiled shared-memory sort (the plan's fields unused).
+extern "C" int nl_sort_sum(const float* x, long long P, int layout, int threads,
+                           int rows_per_stage, int stages, int smem_bytes, int grid,
+                           int bulk_tiles, float* out, void* stream) {
     if (threads <= 0 || threads > 1024) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
     if (P > 0) {
         int blocks = nl::blocks_for(P, threads);
         if (layout == 0) {
-            sort_sum_column_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(x, P, out);
-        } else {
+            sort_sum_column_kernel<<<blocks, threads, 0, st>>>(x, P, out);
+        } else if (layout == 1) {
+#define NL_RING_LAUNCH(T, RR)                                                               \
+    if (threads == T && rows_per_stage == RR)                                               \
+        return (int)launch_ring<T, RR>(x, P, stages, smem_bytes, grid, bulk_tiles, out, st);
+            NL_RING_INSTANCES(NL_RING_LAUNCH)
+#undef NL_RING_LAUNCH
+            return (int)cudaErrorInvalidValue;
+        } else if (layout == 2) {
             int smem = kRows * threads * (int)sizeof(float);
             cudaError_t e = cudaFuncSetAttribute(
                 sort_sum_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
             if (e != cudaSuccess) return (int)e;
-            sort_sum_tiled_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(x, P, out);
+            sort_sum_tiled_kernel<<<blocks, threads, smem, st>>>(x, P, out);
+        } else {
+            return (int)cudaErrorInvalidValue;
         }
     }
     return (int)cudaGetLastError();

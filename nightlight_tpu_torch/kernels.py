@@ -33,7 +33,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("stack_clip.cu", "stack_linfit.cu", "stack_single_pass.cu", "gather_patches.cu",
            "sort_sum.cu")
-HEADERS = ("common.cuh", "sortnet.cuh", "single_pass.cuh")
+HEADERS = ("common.cuh", "sortnet.cuh", "single_pass.cuh", "bulk_ring.cuh")
 # -fmad=false: no contraction of a*b+c into one rounding, so the kernels
 # round like the plain PyTorch versions they are checked against
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -149,8 +149,10 @@ def library() -> ctypes.CDLL:
             lib.nl_stack_single_pass_onchip.argtypes = [vp, i32, i64, f32, f32, f32, i32, i32,
                                                         i32, i32, vp, vp, vp]
             lib.nl_stack_single_pass_onchip.restype = i32
-            lib.nl_sort_sum.argtypes = [vp, i64, i32, i32, vp, vp]
+            lib.nl_sort_sum.argtypes = [vp, i64, i32, i32, i32, i32, i32, i32, i32, vp, vp]
             lib.nl_sort_sum.restype = i32
+            lib.nl_sort_sum_ring_blocks_per_sm.argtypes = [i32, i32, i32, vp]
+            lib.nl_sort_sum_ring_blocks_per_sm.restype = i32
             lib.nl_gather_patches.argtypes = [vp, i32, i32, vp, vp, i32, i32, vp, vp, vp]
             lib.nl_gather_patches.restype = i32
             _lib = lib

@@ -3,15 +3,21 @@
 The port of scripts/microbench_layout.py (kernel K5): the sort-and-sum of
 ops/sortnet_cuda.py over a (40, 2^21) float32 block, in the kernel's two
 layouts -- "column" (each thread sorts its pixel's 40 values in registers)
-and "tiled" (each block stages its (40, 256) tile in shared memory and
-sorts the columns there) -- beside the plain PyTorch version (torch.sort).
+and "tiled" (blocks of 256 columns) in its two designs, "bulk_ring" (a
+persistent grid streams each tile's rows into a ring of shared-memory
+stages by bulk copies; each thread sorts its column in registers) and
+"smem_sort" (the port's first design: each block stages its (40, 256) tile
+in shared memory and sorts the columns there) -- beside the plain PyTorch
+version (torch.sort).
 
 Timing is the dependent-chain method of the original: CHAIN kernel
 applications, each feeding a scalar of its output back into the input
 (x + acc * 1e-30, which leaves x unchanged but orders the chain), timed
 with CUDA events; best of 5 after a warm-up. Each variant prints ms per
-eval (one kernel plus the chain's update of x), the effective input rate
-and the chain's value, which must agree across variants.
+eval (one kernel plus the chain's update of x, a 335 MB read and write),
+the kernel's own ms (CHAIN calls back to back, no update; best of 5), the
+effective input rate of an eval and the chain's value, which must agree
+across variants.
 
     python -m nightlight_tpu_torch.scripts.microbench_layout [--pixels P] [--seed S]
 """
@@ -44,23 +50,36 @@ def chain(fn, x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def time_chain(fn, x: torch.Tensor, label: str, reps: int = 5) -> dict:
-    """Best-of-`reps` CUDA-event time of one chain, per eval."""
-    value = float(chain(fn, x))  # warm-up
+def best_ms(run, reps: int = 5) -> float:
+    """Best-of-`reps` CUDA-event time of run(), after one warm-up run."""
+    run()
     best = float("inf")
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        chain(fn, x)
+        run()
         end.record()
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(end))
-    ms = best / CHAIN
+    return best
+
+
+def time_chain(fn, x: torch.Tensor, label: str, reps: int = 5) -> dict:
+    """Per eval, the best-of-`reps` time of one chain, and the kernel's
+    own time: CHAIN calls of fn(x) back to back."""
+    value = float(chain(fn, x))
+    ms = best_ms(lambda: chain(fn, x), reps) / CHAIN
+
+    def calls():
+        for _ in range(CHAIN):
+            fn(x)
+
+    kernel_ms = best_ms(calls, reps) / CHAIN
     gbps = N * x.shape[1] * 4 / (ms * 1e-3) / 1e9
-    print(f"{label}: {ms:.4f} ms/eval ({gbps:.1f} GB/s effective)  value={value:.3f}",
-          flush=True)
-    return {"label": label, "ms": ms, "gbps": gbps, "value": value}
+    print(f"{label}: {ms:.4f} ms/eval, kernel {kernel_ms:.4f} ms ({gbps:.1f} GB/s effective)  "
+          f"value={value:.3f}", flush=True)
+    return {"label": label, "ms": ms, "kernel_ms": kernel_ms, "gbps": gbps, "value": value}
 
 
 def require_cuda() -> torch.device:
@@ -77,13 +96,17 @@ def main(argv=None) -> list:
     dev = require_cuda()
     x = make_input(opts.pixels, opts.seed, dev)
     results = [
-        time_chain(sortnet_cuda.sort_sum_plain, x, "plain  torch.sort"),
-        time_chain(lambda t: sortnet_cuda.sort_sum_cuda(t, "column"), x, "column registers"),
-        time_chain(lambda t: sortnet_cuda.sort_sum_cuda(t, "tiled"), x, "tiled  (40,256) smem"),
+        time_chain(sortnet_cuda.sort_sum_plain, x, "plain             torch.sort"),
+        time_chain(lambda t: sortnet_cuda.sort_sum_cuda(t, "column"), x,
+                   "column            registers"),
     ]
-    col, tiled = results[1], results[2]
-    print(f"speedup column/tiled: {tiled['ms'] / col['ms']:.2f}x   values match: "
-          f"{len({r['value'] for r in results}) == 1}", flush=True)
+    for design in sortnet_cuda.TILED_DESIGNS:
+        results.append(time_chain(lambda t, d=design: sortnet_cuda.sort_sum_cuda(t, "tiled",
+                                                                                 design=d),
+                                  x, f"tiled {design:9s}   (40,256)"))
+    ring, smem = results[2], results[3]
+    print(f"kernel speedup bulk_ring/smem_sort: {smem['kernel_ms'] / ring['kernel_ms']:.2f}x   "
+          f"values match: {len({r['value'] for r in results}) == 1}", flush=True)
     return results
 
 

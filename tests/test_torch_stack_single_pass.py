@@ -161,22 +161,50 @@ def _microbench_layout():
     return mod
 
 
-def test_sort_sum_plain_matches_jax_sort_sum():
-    """sort_sum_plain against the microbenchmark's pure-jnp sort-and-sum
-    (_sort_sum_rows on the 64-row padded network) at P = 4096, bit for bit:
-    both sort exactly and add the same rows in the same order. A few 3.0e38
-    and +inf samples exercise the mask of the rows above row 0."""
-    mb = _microbench_layout()
+def _sort_sum_input(kind: str) -> np.ndarray:
+    """(40, P) float32 columns of one kind, from a seed: normal samples with
+    a few 3.0e38 and +inf; small integers (heavy ties); -0.0 and 0.0 mixed
+    with -1 and 1, with columns of zeros of both signs and of -0.0 alone;
+    whole columns of 3.0e38 (and of +inf) among normal ones; normal samples
+    at a ragged P."""
     rng = np.random.default_rng(4)
-    p = 4096
-    x = (rng.normal(size=(mb.N, p)) * 2.0 + 100.0).astype(np.float32)
-    x[rng.uniform(size=x.shape) < 0.01] = 3.0e38
-    x[rng.uniform(size=x.shape) < 0.005] = np.inf
+    p = 4093 if kind == "ragged" else 4096
+    x = (rng.normal(size=(40, p)) * 2.0 + 100.0).astype(np.float32)
+    if kind == "normal_big_inf":
+        x[rng.uniform(size=x.shape) < 0.01] = 3.0e38
+        x[rng.uniform(size=x.shape) < 0.005] = np.inf
+    elif kind == "integer_ties":
+        x = rng.integers(0, 6, size=(40, p)).astype(np.float32)
+    elif kind == "signed_zeros":
+        x = rng.integers(-1, 2, size=(40, p)).astype(np.float32)
+        x[x == 0] = np.where(rng.uniform(size=int((x == 0).sum())) < 0.5, -0.0, 0.0)
+        x[:, ::7] = np.where(rng.uniform(size=(40, len(range(0, p, 7)))) < 0.5, -0.0, 0.0)
+        x[:4, 1::7] = -0.0
+        x[:, 3::7] = -0.0  # all -0.0: the sum is -0.0
+    elif kind == "big_columns":
+        x[:, ::16] = 3.0e38
+        x[:, 1::32] = np.inf
+    return x
+
+
+@pytest.mark.parametrize("kind", ["normal_big_inf", "integer_ties", "signed_zeros",
+                                  "big_columns", "ragged"])
+def test_sort_sum_plain_matches_jax_sort_sum(kind):
+    """sort_sum_plain against the microbenchmark's pure-jnp sort-and-sum
+    (_sort_sum_rows on the 64-row padded network) bit for bit (as int32
+    words, so a zero's sign counts): both sort exactly and add the same
+    rows in the same order. 3.0e38 and +inf samples exercise the mask of
+    the rows above row 0; ties, signed zeros, whole columns of 3.0e38 or
+    +inf and a ragged P the order and the edges."""
+    mb = _microbench_layout()
+    x = _sort_sum_input(kind)
+    assert x.shape[0] == mb.N
+    p = x.shape[1]
     rows = [jnp.asarray(x[i]) for i in range(mb.N)]
     rows += [jnp.full((p,), 3.0e38, jnp.float32) for _ in range(mb.N_PAD - mb.N)]
     j = np.asarray(mb._sort_sum_rows(rows, mb.N))
     t = sortnet_cuda.sort_sum(torch.from_numpy(x))
-    np.testing.assert_array_equal(t.numpy(), j)
+    np.testing.assert_array_equal(t.numpy().view(np.int32), j.view(np.int32))
 
 
 def test_sort_sum_checks_shape():
