@@ -61,6 +61,20 @@
    card against the CPU, `run` on the three examples/*.json jobs on
    generated inputs, `stats`, a -normHist 3 stack and a stack with an
    external -alignRef file.
+5d. The REST server (nightlight_tpu_torch/serve): serve_batches16, the
+   live-stacking job of tests/test_rest.py (loadMany; stackBatches of
+   starDetect, two selectRef, matchHist 2, align and stack mode 6 at sigma
+   2.75; save) POSTed to rest.make_server on a thread over 16 of step 4's
+   lights, -stMemory chosen by the port's batch planner for 2 batches of
+   8; the chunked stream (over 20 chunks, each batch start in its own
+   chunk, no error), a finite size^2 output and K1 and K4 launches
+   checked, its wall and peak memory printed; then run_batches16, the same
+   job through the CLI `run` with the same seed and budget, its output bit
+   for bit the served one and its log lines equal after the job echo; two
+   512^2 jobs POSTed at once (the second streams the queued notice);
+   `python -m nightlight_tpu_torch.cli serve` as a subprocess answering
+   ping, its schema (45 operators) and a job; ops/stats_extra.py and
+   ops/color_extra.py on the card against the CPU.
 6. Runs the sort-network microbenchmarks (nightlight_tpu_torch.scripts.
    microbench_layout and microbench_tile) and checks their launches and
    that every variant gives the same value.
@@ -81,6 +95,7 @@ import io
 import json
 import math
 import os
+import random
 import re
 import shutil
 import statistics
@@ -892,6 +907,325 @@ def small_commands(cli, fits_mod, fixtures, work: str) -> None:
     shutil.rmtree(sdir, ignore_errors=True)
 
 
+# The live-stacking job of tests/test_rest.py:182-195
+def serve_job(out: str) -> dict:
+    return {"type": "seq", "steps": [
+        {"type": "loadMany", "filePatterns": ["light*.fits"]},
+        {"type": "stackBatches", "perBatch": {"type": "seq", "steps": [
+            {"type": "starDetect", "radius": 16, "sigma": 15.0,
+             "badPixelSigma": 5.0, "inOutRatio": 1.4},
+            {"type": "selectRef", "target": 1, "mode": "%starsHFR"},
+            {"type": "selectRef", "target": 0, "mode": "%starsHFR"},
+            {"type": "matchHist", "mode": 2},
+            {"type": "align", "k": 20, "threshold": 1.0, "oobMode": 0},
+            {"type": "stack", "mode": 6, "sigmaLow": 2.75, "sigmaHigh": 2.75},
+        ]}},
+        {"type": "save", "filePattern": out},
+    ]}
+
+
+SERVE_SEED = 123  # Python's random permutes the frames into batches
+SERVE_DEVICE = "cuda:0"
+
+
+def plan_st_memory(n: int, size: int, device) -> int:
+    """The smallest -stMemory, in steps of one frame's MiB, for which the
+    port's own batch planner (OpStackBatches._partition, the JSON job's
+    path) splits n size^2 frames into 2 batches of n/2 on this host."""
+    from nightlight_tpu_torch.pipeline.context import new_context
+    from nightlight_tpu_torch.pipeline.ops_stack import OpStackBatches
+
+    class Frame:
+        naxisn = [size, size]
+        file_name = "plan"
+
+    frame_mib = max(1, size * size * 4 >> 20)
+    for st in range(frame_mib, 4 * n * frame_mib + 1, frame_mib):
+        c = new_context(log=io.StringIO(), st_memory=st, device=device)
+        try:
+            _, batches, batch_size, _ = OpStackBatches()._partition([Frame] * n, c)
+        except ValueError:  # the budget fits no plan
+            continue
+        if (batches, batch_size) == (2, n // 2):
+            return st
+    raise SmokeFailure(f"no -stMemory plans {n} frames of {size}^2 as 2 batches")
+
+
+def post_chunked(port: int, payload: dict, on_chunk=None):
+    """POST a job to 127.0.0.1:port and read the chunked body frame by
+    frame, as tests/test_rest.py's _post_raw_chunked does; on_chunk(bytes)
+    sees each chunk as it arrives. Returns (header, chunks)."""
+    import socket
+
+    body = json.dumps(payload).encode()
+    req = (f"POST /api/v1/job HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+           f"Content-Type: application/json\r\nContent-Length: {len(body)}\r\n\r\n"
+           ).encode() + body
+    with socket.create_connection(("127.0.0.1", port), timeout=600) as s:
+        s.sendall(req)
+        buf = b""
+        while b"\r\n\r\n" not in buf:
+            got = s.recv(65536)
+            check(bool(got), "serve: connection closed before the header")
+            buf += got
+        header, data = buf.split(b"\r\n\r\n", 1)
+        chunks = []
+        while True:
+            while b"\r\n" not in data:
+                got = s.recv(65536)
+                check(bool(got), "serve: connection closed mid-stream")
+                data += got
+            size_line, data = data.split(b"\r\n", 1)
+            size = int(size_line, 16)
+            if size == 0:
+                break
+            while len(data) < size + 2:
+                got = s.recv(65536)
+                check(bool(got), "serve: connection closed mid-chunk")
+                data += got
+            chunks.append(data[:size])
+            if on_chunk is not None:
+                on_chunk(data[:size])
+            data = data[size + 2:]
+    return header.decode(), chunks
+
+
+def job_lines(log: str) -> list:
+    """The log lines after the job's JSON echo ("Arguments:" from the
+    server, "Running JSON job:" from `run`, each ending at the echo's
+    closing brace), without the timing line and blank lines."""
+    lines = log.splitlines()
+    start = lines.index("}") + 1
+    return [ln for ln in lines[start:] if ln.strip() and not ln.startswith("Done after")]
+
+
+def serve_batches16(cli, fits_mod, kernels, serve_dir: str, size: int, record) -> None:
+    """The served live-stacking job at full width: 16 lights through
+    rest.make_server on a thread, st_memory chosen for 2 batches of 8; the
+    chunked stream, the output and the K1/K4 launches checked; then the
+    same job through the CLI `run` with the same seed and budget, held bit
+    for bit against the served output, its log lines equal after the job
+    echo."""
+    import threading
+
+    import torch
+
+    from nightlight_tpu_torch.serve import rest
+
+    n = len(glob.glob(os.path.join(serve_dir, "light*.fits")))
+    check(n == 16, f"serve_batches16: {n} lights")
+    st = plan_st_memory(n, size, torch.device(SERVE_DEVICE))
+    say(f"serve_batches16: -stMemory {st} MiB plans 2 batches of {n // 2}")
+    os.chdir(serve_dir)
+    srv = rest.make_server(0, st, device=SERVE_DEVICE)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        random.seed(SERVE_SEED)
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        header, chunks = post_chunked(srv.server_address[1], serve_job("live_stacked.fits"))
+        seconds = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / (1 << 30)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    log = b"".join(chunks).decode()
+    write_log("chip_smoke_serve_batches16.log", log)
+    starts = [ch.decode().strip() for ch in chunks if b"Starting batch" in ch]
+    say(f"serve_batches16 (16 lights, live-stacking job, {n // 2} a batch): wall "
+        f"{seconds:.2f} s peak {peak:.2f} GiB chunks {len(chunks)} launches {counts} "
+        f"batch chunks {starts}")
+    check("Transfer-Encoding: chunked" in header, f"serve_batches16: header {header!r}")
+    check(len(chunks) > 20, f"serve_batches16: {len(chunks)} chunks")
+    check(starts == [f"Starting batch 1 of 2 with {n // 2} frames...",
+                     f"Starting batch 2 of 2 with {n // 2} frames..."],
+          f"serve_batches16: batch chunks {starts}")
+    check("Error" not in log, f"serve_batches16: log tail {log[-2000:]}")
+    check(counts["stack_clip"] > 0 and counts["gather_patches"] > 0,
+          f"serve_batches16: launches {counts}")
+    served = check_output(fits_mod, "live_stacked.fits", size)
+    check(bool(np.isfinite(served).all()), "serve_batches16: output not finite")
+    record("serve_batches16", counts, seconds, peak)
+    os.replace("live_stacked.fits", "served.fits")
+
+    with open("job.json", "w") as fh:
+        json.dump(serve_job("live_stacked.fits"), fh)
+    random.seed(SERVE_SEED)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rc, run_log, run_seconds = run_cli(cli, ["-log", "", "-stMemory", str(st), "-job",
+                                             "job.json", "run"], "chip_smoke_run_batches16.log",
+                                       device=SERVE_DEVICE)
+    run_counts = kernels.launch_counts()
+    run_peak = torch.cuda.max_memory_allocated() / (1 << 30)
+    check(rc == 0, f"run_batches16: rc {rc}; log tail {run_log[-2000:]}")
+    ran = check_output(fits_mod, "live_stacked.fits", size)
+    same_bits = bool(np.array_equal(served, ran, equal_nan=True))
+    same_lines = job_lines(log) == job_lines(run_log)
+    say(f"run_batches16 (the same job through `run`, seed {SERVE_SEED}): rc {rc} wall "
+        f"{run_seconds:.2f} s peak {run_peak:.2f} GiB launches {run_counts}; output bit for "
+        f"bit {same_bits}, log lines after the echo equal {same_lines}")
+    check(same_bits, "run_batches16: output differs from the served one")
+    check(same_lines, "run_batches16: log lines differ from the served ones")
+    record("run_batches16", run_counts, run_seconds, run_peak)
+
+
+def serve_two_jobs(fixtures, fits_mod, work: str) -> str:
+    """Two 512^2 live-stacking jobs POSTed together: the second goes out
+    once the first streams a line from inside the job lock, so it must
+    stream the queued notice; both complete. Returns the lights'
+    directory."""
+    import threading
+
+    from nightlight_tpu_torch.serve import rest
+
+    sdir = os.path.join(work, "serve_small")
+    fixtures.gen(sdir, 8, 512, seed=11)
+    os.chdir(sdir)
+    srv = rest.make_server(0, 0, device=SERVE_DEVICE)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    port = srv.server_address[1]
+    inside = threading.Event()
+    results = {}
+
+    def first():
+        results["a"] = post_chunked(port, serve_job("a.fits"),
+                                    lambda ch: b"Found" in ch and inside.set())
+
+    try:
+        ta = threading.Thread(target=first)
+        ta.start()
+        check(inside.wait(timeout=300), "serve two jobs: the first job streamed nothing")
+        results["b"] = post_chunked(port, serve_job("b.fits"))
+        ta.join(timeout=600)
+        check(not ta.is_alive() and "a" in results, "serve two jobs: the first job hung")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    logs = {k: b"".join(v[1]).decode() for k, v in results.items()}
+    queued = [k for k, v in logs.items() if "Queued: another job is running" in v]
+    say(f"serve two 512^2 jobs at once: queued notice in {queued}, "
+        f"errors {[k for k, v in logs.items() if 'Error' in v]}")
+    check(queued == ["b"], f"serve two jobs: queued notice in {queued}")
+    for k in ("a", "b"):
+        check("Error" not in logs[k], f"serve two jobs: job {k} log tail {logs[k][-2000:]}")
+        check_output(fits_mod, f"{k}.fits", 512)
+    return sdir
+
+
+def serve_cli(sdir: str, fits_mod) -> None:
+    """`python -m nightlight_tpu_torch.cli -port P serve` as a subprocess in
+    sdir: it answers ping within a time limit, lists all 45 operators in
+    its schema and completes one 512^2 job; killed in a finally."""
+    import socket
+    import urllib.request
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    os.makedirs(LOG_DIR, exist_ok=True)
+    out_path = os.path.join(LOG_DIR, "chip_smoke_serve_cli.log")
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out:
+        proc = subprocess.Popen([sys.executable, "-m", "nightlight_tpu_torch.cli", "-log", "",
+                                 "-port", str(port), "serve"],
+                                cwd=sdir, env=env, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            base = f"http://127.0.0.1:{port}"
+            while True:
+                check(proc.poll() is None, f"serve CLI exited with {proc.returncode}")
+                check(time.perf_counter() - t0 < 180, "serve CLI: no ping within 180 s")
+                try:
+                    with urllib.request.urlopen(base + "/api/v1/ping", timeout=5) as resp:
+                        pong = json.loads(resp.read())
+                    break
+                except OSError:
+                    time.sleep(0.5)
+            ready = time.perf_counter() - t0
+            with urllib.request.urlopen(base + "/api/v1/schema", timeout=30) as resp:
+                ops = json.loads(resp.read())["operators"]
+            _, chunks = post_chunked(port, serve_job("cli.fits"))
+            log = b"".join(chunks).decode()
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+    say(f"serve CLI subprocess: ping {pong} after {ready:.1f} s, schema {len(ops)} operators, "
+        f"job {'completed' if 'Writing 512x512 pixel FITS to cli.fits' in log else 'FAILED'}")
+    check(pong == {"message": "pong"} and len(ops) == 45, "serve CLI: ping or schema")
+    check("Error" not in log and "Writing 512x512 pixel FITS to cli.fits" in log,
+          f"serve CLI: job log tail {log[-2000:]}")
+    check_output(fits_mod, os.path.join(sdir, "cli.fits"), 512)
+
+
+def extras_on_card() -> None:
+    """ops/stats_extra.py and ops/color_extra.py on the card against the
+    CPU on the same seeded inputs, in the bands of tests/test_torch_extras.py
+    (there against the JAX package): the clip window, the medians and the
+    bounded order statistics exactly, MADs within one float32 step, the
+    bounded stddev within 1e-6 relative (its sum's order); OkLab within 4
+    float32 steps of 1.0, the hue within 2 steps on the circle."""
+    import torch
+
+    from nightlight_tpu_torch.ops import color_extra as ce
+    from nightlight_tpu_torch.ops import jaxrand
+    from nightlight_tpu_torch.ops import stats_extra as se
+
+    rng = np.random.default_rng(42)
+    x = rng.normal(10.0, 1.0, size=1 << 20).astype(np.float32)
+    x[:25000] = 1000.0
+    cpu, dev = torch.from_numpy(x), torch.from_numpy(x).to(SERVE_DEVICE)
+    med_c, mad_c = se.sigma_clipped_median_and_mad(cpu, 2.0, 2.5)
+    med_g, mad_g = se.sigma_clipped_median_and_mad(dev, 2.0, 2.5)
+    mad_ulps = abs(int(np.float32(mad_g.cpu()).view(np.int32))
+                   - int(np.float32(mad_c).view(np.int32)))
+    key = jaxrand.prng_key(5)
+    bounded = {}
+    for name, fn in (("median", lambda d: se.fast_approx_bounded_median(d, 5.0, 15.0, key)),
+                     ("mad", lambda d: se.fast_approx_bounded_mad(d, 10.0, 5.0, 15.0, key)),
+                     ("qn", lambda d: se.fast_approx_bounded_qn(d, 5.0, 15.0, key)),
+                     ("stddev", lambda d: se.fast_approx_bounded_stddev(d, 10.0, 5.0, 15.0,
+                                                                       key))):
+        bounded[name] = (float(fn(cpu)), float(fn(dev)))
+    hsm = (se.half_sample_mode(cpu[:65536]), se.half_sample_mode(dev[:65536]))
+    rgb = rng.uniform(-0.05, 1.05, size=(3, 1024, 1024)).astype(np.float32)
+    lab_c = ce.linrgb_to_oklab(torch.from_numpy(rgb))
+    lab_g = ce.linrgb_to_oklab(torch.from_numpy(rgb).to(SERVE_DEVICE))
+    lab_err = float((lab_g.cpu() - lab_c).abs().max())
+    back_err = float((ce.oklab_to_linrgb(lab_c.to(SERVE_DEVICE)).cpu()
+                      - ce.oklab_to_linrgb(lab_c)).abs().max())
+    hcl_c = ce.oklab_to_okhcl(lab_c)
+    hcl_g = ce.oklab_to_okhcl(lab_c.to(SERVE_DEVICE)).cpu()
+    dh = ((hcl_g[0] - hcl_c[0] + 180.0) % 360.0 - 180.0).abs()
+    hue_ok = bool((dh <= 2 * torch.from_numpy(np.spacing(hcl_c[0].abs().numpy()))
+                   + 1e-12).all())
+    rt_err = float((ce.okhcl_to_oklab(hcl_c.to(SERVE_DEVICE)).cpu()
+                    - ce.okhcl_to_oklab(hcl_c)).abs().max())
+    say(f"extras gpu vs cpu: sigma-clipped median {float(med_g)} / {float(med_c)}, MAD "
+        f"{mad_ulps} steps apart; bounded {bounded}; half-sample mode {hsm}; OkLab max "
+        f"abs diff {lab_err:.3g}, inverse {back_err:.3g}, hue within 2 steps {hue_ok}, "
+        f"HCL -> OkLab {rt_err:.3g}")
+    step = float(np.spacing(np.float32(1.0)))
+    check(float(med_g) == float(med_c) and mad_ulps <= 1, "extras: sigma-clipped median/MAD")
+    check(all(g == c for k, (c, g) in bounded.items() if k != "stddev"),
+          f"extras: bounded estimators {bounded}")
+    check(abs(bounded["stddev"][1] - bounded["stddev"][0]) <= 1e-6 * bounded["stddev"][0],
+          f"extras: bounded stddev {bounded['stddev']}")
+    check(hsm[0] == hsm[1], f"extras: half-sample mode {hsm}")
+    check(lab_err <= 4 * step and back_err <= 4 * step and hue_ok and rt_err <= 4 * step,
+          "extras: OkLab outside the band")
+
+
 def run_microbench(mod, log_name: str):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -988,7 +1322,12 @@ def main() -> int:
             check_output(nlfits, out, size)
             os.remove(out)
 
-        for ln in lights:
+        # 16 lights stay for the served live-stacking job (serve_batches16)
+        serve_dir = os.path.join(work, "serve")
+        os.makedirs(serve_dir)
+        for ln in lights[:16]:
+            os.replace(ln, os.path.join(serve_dir, ln))
+        for ln in lights[16:]:
             os.remove(ln)
 
         # the one-shot-colour chain and the stretch command
@@ -1079,6 +1418,17 @@ def main() -> int:
         sdir = small_gpu_vs_cpu(cli, nlfits, fixtures, work, "osc_G_mode3",
                                 ("-cfa", "RGGB", "-debayer", "G", "-stMode", "3"), bayer="RGGB")
         small_stretch_gpu_vs_cpu(cli, nlfits, sdir)
+
+        # the REST server: the served live-stacking job at full width held
+        # against `run`, two jobs at once, the CLI entry point; the extras
+        serve_batches16(cli, nlfits, kernels, serve_dir, size, record)
+        os.chdir(work)
+        shutil.rmtree(serve_dir, ignore_errors=True)
+        small_dir = serve_two_jobs(fixtures, nlfits, work)
+        serve_cli(small_dir, nlfits)
+        os.chdir(work)
+        shutil.rmtree(small_dir, ignore_errors=True)
+        extras_on_card()
     finally:
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)

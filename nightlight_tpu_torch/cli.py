@@ -1,7 +1,8 @@
 """Command-line interface of the port, mirror of nightlight_tpu/cli.py
 (reference: cmd/nightlight/main.go): the same flags, per-command defaults,
-%auto filename derivation, job-JSON echo and log lines. Every command runs
-but ``serve`` (queued in ROADMAP.md); ``run`` executes a JSON job file.
+%auto filename derivation, job-JSON echo and log lines. ``run`` executes a
+JSON job file; ``serve`` starts the REST job server and web UI
+(serve/rest.py). Only the -shard flag is not ported.
 
 On a machine with a GPU the pipeline runs on cuda:0, with TF32 disabled for
 matrix products and cuDNN so float32 math stays float32.
@@ -9,6 +10,7 @@ matrix products and cuDNN so float32 math stays float32.
     python -m nightlight_tpu_torch.cli -out stacked.fits -dark dark.fits stack 'lights/*.fits'
     python -m nightlight_tpu_torch.cli -out rgb.fits rgb r.fits g.fits b.fits l.fits
     python -m nightlight_tpu_torch.cli -log "" -job job.json run
+    python -m nightlight_tpu_torch.cli -port 8080 serve
 """
 
 from __future__ import annotations
@@ -60,7 +62,7 @@ def build_parser() -> argparse.ArgumentParser:
     a("-trace", default="", help="write a torch.profiler trace of the run to this directory"
       " (the analog of the reference's -cpuprofile/-memprofile)")
     a("-shard", action="store_true",
-      help="row-shard frames across all attached devices (not ported yet)")
+      help="row-shard frames across all attached devices (not ported yet: raises)")
 
     a("-out", default="out.fits", help="save output to file")
     a("-jpg", default="%auto", help="save 8bit preview of output as JPEG")
@@ -325,10 +327,10 @@ def main(argv=None, device=None) -> int:
     from nightlight_tpu_torch.pipeline import operators as opmod
     from nightlight_tpu_torch.pipeline.context import default_device, new_context
 
-    # only the commands that build a pipeline need the card; resolved
-    # outside the error report below: a missing card is the caller's fault,
-    # not a failed command
-    if pipeline:
+    # only the commands that build a pipeline, and the server that runs
+    # them, need the card; resolved outside the error report below: a
+    # missing card is the caller's fault, not a failed command
+    if pipeline or cmd == "serve":
         device = torch.device(device) if device is not None else default_device()
     if args.allowAbsolutePaths:
         opmod.ALLOW_ABSOLUTE_PATHS = True
@@ -355,8 +357,15 @@ def main(argv=None, device=None) -> int:
             else:
                 run_op(build_command_seq(args), c)
         elif cmd == "serve":
-            raise NotImplementedError("the 'serve' command is not ported yet "
-                                      "(queued in ROADMAP.md)")
+            from nightlight_tpu_torch.serve.rest import serve, warm_device
+            from nightlight_tpu_torch.serve.sandbox import make_sandbox
+
+            # the card and the kernels first: after a chroot the kernel
+            # build and nvcc are out of reach. -lsEst reaches no served job
+            # (serve/rest.py), as in the JAX package.
+            warm_device(device)
+            make_sandbox(args.chroot, args.setuid, log_writer)
+            serve(args.port, args.stMemory, device=device)
         elif cmd == "legal":
             log_writer.write(LEGAL)
         elif cmd == "version":

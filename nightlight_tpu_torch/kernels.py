@@ -44,22 +44,28 @@ KERNEL_NAMES = ("stack_clip", "stack_linfit", "stack_single_pass", "gather_patch
                 "sort_sum")
 _launches = {name: 0 for name in KERNEL_NAMES}
 
+# a served job launches from a request handler's thread
+_count_lock = threading.Lock()
+
 _lib = None
 _lib_lock = threading.Lock()
 BUILD_INFO: dict = {}
 
 
 def count_launch(name: str) -> None:
-    _launches[name] += 1
+    with _count_lock:
+        _launches[name] += 1
 
 
 def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
+    with _count_lock:
+        for name in _launches:
+            _launches[name] = 0
 
 
 def launch_counts() -> dict:
-    return dict(_launches)
+    with _count_lock:
+        return dict(_launches)
 
 
 def source_hash() -> str:

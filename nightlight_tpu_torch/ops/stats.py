@@ -129,18 +129,19 @@ def _qn_diffs_roll(sample, mask, shifts):
 
 def sigma_clipped_median_qn(flat: torch.Tensor, sigma_low: float = 2.0,
                             epsilon=1e-4, num_samples: int = NUM_SAMPLES,
-                            max_iter: int = 10):
+                            max_iter: int = 10, seed: int = 0):
     """Iteratively sigma-clipped sampled median and sampled Qn per row of a
     (B, P) block (stats.go:477-499). Keeps the reference's quirk of using
-    sigma_low for both bounds. epsilon is a scalar or a (B,) tensor.
-    Returns ((B,) location, (B,) scale), float32."""
+    sigma_low for both bounds. epsilon is a scalar or a (B,) tensor; the
+    draws are those of the JAX package's key PRNGKey(seed). Returns ((B,)
+    location, (B,) scale), float32."""
     if flat.dim() == 1:
         loc, scale = sigma_clipped_median_qn(flat[None], sigma_low, epsilon,
-                                             num_samples, max_iter)
+                                             num_samples, max_iter, seed)
         return loc[0], scale[0]
     b, p = flat.shape
     dev = flat.device
-    idx, shift0, loop_shifts, shift_final = _scmq_draws(p, num_samples, max_iter)
+    idx, shift0, loop_shifts, shift_final = _scmq_draws(p, num_samples, max_iter, seed)
     sr = _sample(flat, idx)
     ss = torch.sort(sr, dim=-1).values
     eps = torch.as_tensor(epsilon, dtype=torch.float32, device=dev).expand(b)

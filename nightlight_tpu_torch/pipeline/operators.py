@@ -170,7 +170,8 @@ class _RangeWarn:
 
 @register
 class OpLoad(Operator):
-    """Load one FITS/TIFF image onto the context's device (operator.go:210-282)."""
+    """Load one FITS/TIFF image (operator.go:210-282).
+    The image lands on the context's device."""
 
     TYPE = "load"
     PARAMS = {"id": ("id", 0), "file_name": ("fileName", "")}

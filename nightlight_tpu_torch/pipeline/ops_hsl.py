@@ -45,7 +45,7 @@ def _pct(v) -> np.float32:
 
 @register
 class OpHSLApplyLum(UnaryOperator):
-    """Copy the context's luminance frame into the L channel (hsl.go:30-71)."""
+    """Copy the context luminance frame into the L channel (hsl.go:30-71)."""
 
     TYPE = "hslApplyLum"
     PARAMS = {}
@@ -64,7 +64,7 @@ class OpHSLApplyLum(UnaryOperator):
 
 @register
 class OpHSLScaleOffsetChannel(UnaryOperator):
-    """Scale and offset one channel (hsl.go:73-119)."""
+    """Scale/offset one channel (hsl.go:73-119)."""
 
     TYPE = "hslScaleOffsetChannel"
     PARAMS = {"channel_id": ("channelID", 2), "scale": ("scale", 1.0), "offset": ("offset", 0.0)}
@@ -81,7 +81,7 @@ class OpHSLScaleOffsetChannel(UnaryOperator):
 
 @register
 class OpHSLNeutralizeBackground(UnaryOperator):
-    """Desaturate the low-luminance background (hsl.go:121-172)."""
+    """Desaturate low-luminance background (hsl.go:121-172)."""
 
     TYPE = "hslNeutralizeBackground"
     PARAMS = {"sigma_low": ("sigmaLow", 0.75), "sigma_high": ("sigmaHigh", 1.0)}
@@ -102,7 +102,7 @@ class OpHSLNeutralizeBackground(UnaryOperator):
 
 @register
 class OpHSLSaturationGamma(UnaryOperator):
-    """Gamma on the saturation above a luminance threshold (hsl.go:174-222)."""
+    """Gamma on saturation above a luminance threshold (hsl.go:174-222)."""
 
     TYPE = "hslSaturationGamma"
     PARAMS = {"gamma": ("gamma", 1.75), "sigma": ("sigma", 0.75)}
@@ -122,7 +122,7 @@ class OpHSLSaturationGamma(UnaryOperator):
 
 @register
 class OpHSLSelectiveSaturation(UnaryOperator):
-    """Scale the saturation of a hue range (hsl.go:224-270)."""
+    """Scale saturation for a hue range (hsl.go:224-270)."""
 
     TYPE = "hslSelectiveSaturation"
     PARAMS = {"from_": ("from", 295.0), "to": ("to", 40.0), "factor": ("factor", 1.0)}
@@ -138,8 +138,7 @@ class OpHSLSelectiveSaturation(UnaryOperator):
 
 @register
 class OpHSLRotateHue(UnaryOperator):
-    """Rotate the hues of a range for luminances above a threshold
-    (hsl.go:272-321)."""
+    """Rotate hues in a range for luminances above threshold (hsl.go:272-321)."""
 
     TYPE = "hslRotateHue"
     PARAMS = {"from_": ("from", 100.0), "to": ("to", 190.0), "offset": ("offset", 0.0),
@@ -228,7 +227,7 @@ class OpHSLGammaPP(UnaryOperator):
 
 @register
 class OpHSLUnsharpMask(UnaryOperator):
-    """Unsharp mask on the luminance channel (hsl.go:501-556)."""
+    """USM on the luminance channel (hsl.go:501-556)."""
 
     TYPE = "HSLUnsharpMask"
     PARAMS = {"sigma": ("sigma", 1.5), "gain": ("gain", 0.0), "threshold": ("threshold", 0.75)}
@@ -254,7 +253,7 @@ class OpHSLUnsharpMask(UnaryOperator):
 
 @register
 class OpHSLScaleBlack(UnaryOperator):
-    """Scale black on the luminance channel, the target converted from
+    """Scale black on the luminance channel, with the target converted from
     linear to HSLuv luminance (hsl.go:558-610)."""
 
     TYPE = "hslScaleBlack"

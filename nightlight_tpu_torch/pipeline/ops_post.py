@@ -35,7 +35,7 @@ class OutOfBoundsMode(IntEnum):
 
 @register
 class OpMatchHistogram(UnaryOperator):
-    """Match the histogram against the context reference (postprocess.go:41-94)."""
+    """Match histogram against the context reference (postprocess.go:41-94)."""
 
     TYPE = "matchHist"
     PARAMS = {"mode": ("mode", int(HistoNormMode.LocScale))}
@@ -80,7 +80,8 @@ class _TransformText:
 
 @register
 class OpAlign(UnaryOperator):
-    """Align each frame to the context reference (postprocess.go:105-207).
+    """Align each frame to the context reference and project it
+    (postprocess.go:105-207).
     With defer_warp (set by the stack preset) the projection waits for the
     stack/save barrier, where check_align_drop applies the residual
     threshold first."""

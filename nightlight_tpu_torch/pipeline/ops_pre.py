@@ -69,7 +69,7 @@ class OpCalibrate(UnaryOperator):
 
 @register
 class OpBadPixel(UnaryOperator):
-    """Bad-pixel detection and cosmetic repair (pre/preprocess.go:145-201),
+    """Bad-pixel detection and cosmetic repair (pre/preprocess.go:145-201).
     CFA-aware when a debayer channel is configured."""
 
     TYPE = "badPixel"
@@ -218,8 +218,8 @@ class OpBin(UnaryOperator):
 
 @register
 class OpStarDetect(UnaryOperator):
-    """Star detection with an optional star-image save (-stars)
-    (pre/preprocess.go:401-465)."""
+    """Star detection with optional debug rendering (pre/preprocess.go:401-465).
+    The rendering is the star-image save (-stars)."""
 
     TYPE = "starDetect"
     PARAMS = {

@@ -29,9 +29,11 @@ _TARGET_STRINGS = ["alignment", "histogram"]
 
 @register
 class OpSelectReference(Operator):
-    """Reference frame selection (refframe.go:41-210): the first promise to
-    run materializes ALL inputs, scores them and posts the reference into
-    the context; every promise then hands out its materialized image."""
+    """Reference frame selection (refframe.go:41-210).
+
+    The first promise to run materializes ALL inputs, scores them and posts
+    the reference into the context; every promise then hands out its
+    materialized image."""
 
     TYPE = "selectRef"
     PARAMS = {

@@ -18,7 +18,7 @@ from nightlight_tpu_torch.pipeline.operators import Operator, UnaryOperator, mat
 
 @register
 class OpRGBCombine(Operator):
-    """Combine 3 (+1 luminance) mono frames into an RGB cube (rgb.go:42-80).
+    """Combine 3(+1 luminance) mono frames into an RGB cube (rgb.go:42-80).
     With four inputs the fourth is the luminance frame, kept in the context
     for hslApplyLum."""
 
@@ -143,7 +143,7 @@ class OpRGBToHSLuv(UnaryOperator):
 
 @register
 class OpHSLuvToRGB(UnaryOperator):
-    """HSLuv -> linear RGB with the colour-preserving clamp (rgb.go:172-205)."""
+    """HSLuv -> linear RGB with color-preserving clamp (rgb.go:172-205)."""
 
     TYPE = "hsluvToRGB"
     PARAMS = {}

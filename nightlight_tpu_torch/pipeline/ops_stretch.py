@@ -84,7 +84,8 @@ def _f32(v) -> np.float32:
 
 @register
 class OpNormalizeRange(UnaryOperator):
-    """Normalize to [0, 1] (stretch.go:30-67); a uniform image passes."""
+    """Normalize to [0,1] (stretch.go:30-67).
+    A uniform image passes."""
 
     TYPE = "normRange"
     PARAMS = {}

@@ -1,5 +1,7 @@
 """The whole `stack` slice: the JAX CLI and the port's CLI on the same small
-fixture, plus the port's import and dispatch guarantees."""
+fixture, plus the port's import and dispatch guarantees: every command is
+ported, and those that need the card (the pipeline commands and `serve`)
+raise without one unless the caller passes the CPU."""
 
 import contextlib
 import inspect
@@ -92,13 +94,18 @@ def run_main(cli_mod, argv):
         jstats.DEFAULT_LS_ESTIMATOR = saved
 
 
-def test_unported_command_reports_error(tmp_path, monkeypatch):
-    """`serve`, the one command not ported, reports so as a CLI error."""
+def test_serve_without_a_card_raises(tmp_path, monkeypatch):
+    """`serve` resolves its device as the pipeline commands do: without a
+    CUDA device, and without device="cpu", main raises before it warms,
+    sandboxes or binds anything."""
+    from nightlight_tpu_torch.serve import rest as trest
+
     monkeypatch.chdir(tmp_path)
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = run_main(tcli, ["-log", "", "serve"])
-    assert rc == -1 and "'serve' command is not ported yet" in buf.getvalue()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(trest, "serve", lambda *a, **k: pytest.fail("serve was reached"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tcli.main(["-log", "", "serve"])
 
 
 def test_cli_without_a_card_raises(tmp_path, monkeypatch):

@@ -172,3 +172,182 @@ def test_shift_black_matches_go_oracle():
     d = np.random.default_rng(42).uniform(0.0, 1.0, 1024).astype(np.float32)
     got = shift_black_to_move(torch.from_numpy(d), 0.2, 0.1).numpy()
     np.testing.assert_allclose(got, go_shift_black_oracle(d, 0.2, 0.1), rtol=2e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The estimators, the reference selection and the stretch decision, held
+# against the oracles of the JAX package's tests with their tolerances
+# ---------------------------------------------------------------------------
+
+
+def test_sigma_clipped_median_qn_matches_go_oracle_and_keeps_the_quirk():
+    """-lsEst 3 on 35% contamination at +6 sigma: the port tracks the
+    quirk oracle (both bounds at sigma_low), not the non-quirk one, and
+    returns the unbounded Qn of the whole sample (PRNGKey(11), 16384
+    samples, as the JAX package's test)."""
+    from nightlight_tpu_torch.ops.stats import sigma_clipped_median_qn
+    from test_go_oracles import go_sigma_clipped_median_qn_oracle
+
+    rng = np.random.default_rng(42)
+    data = np.concatenate([rng.normal(100.0, 2.0, size=2600),
+                           rng.normal(112.0, 2.0, size=1400)]).astype(np.float32)
+    rng.shuffle(data)
+    loc, scale = sigma_clipped_median_qn(torch.from_numpy(data), 2.0, num_samples=16384,
+                                         seed=11)
+    loc, scale = float(loc), float(scale)
+    oloc, oscale = go_sigma_clipped_median_qn_oracle(np.float64(data), 2.0, 8.0, quirk=True)
+    nloc, _ = go_sigma_clipped_median_qn_oracle(np.float64(data), 2.0, 8.0, quirk=False)
+    assert abs(nloc - oloc) > 0.5
+    assert loc == pytest.approx(oloc, abs=0.3)
+    assert abs(loc - oloc) < abs(loc - nloc)
+    assert scale == pytest.approx(oscale, rel=0.15)
+
+
+def test_sigma_clipped_median_qn_clean_gaussian_matches_go_oracle():
+    from nightlight_tpu_torch.ops.stats import sigma_clipped_median_qn
+    from test_go_oracles import go_sigma_clipped_median_qn_oracle
+
+    data = np.random.default_rng(42).normal(500.0, 7.0, size=4000).astype(np.float32)
+    loc, scale = sigma_clipped_median_qn(torch.from_numpy(data), 2.0, num_samples=16384, seed=3)
+    oloc, oscale = go_sigma_clipped_median_qn_oracle(np.float64(data), 2.0, 2.0)
+    assert float(loc) == pytest.approx(oloc, abs=0.35)
+    assert float(scale) == pytest.approx(oscale, rel=0.1)
+    assert float(scale) == pytest.approx(7.0, rel=0.12)
+
+
+@pytest.mark.parametrize("n,contaminated,abs_loc,rel_scale", [
+    (2000, False, 1e-3, 1e-3), (2001, False, 1e-3, 1e-3), (3000, True, 2e-3, 2e-3)])
+def test_ikss_matches_go_oracle(n, contaminated, abs_loc, rel_scale):
+    """IKSS (-lsEst 2) against the oracle of stats.go:535-566, clean and
+    with 200 bright samples the window shrink rejects."""
+    from nightlight_tpu_torch.ops.stats import ikss
+    from test_go_oracles import go_ikss_oracle
+
+    data = np.random.default_rng(42).normal(100.0, 5.0, size=n).astype(np.float32)
+    if contaminated:
+        data[:200] += 400.0
+    loc, scale = ikss(torch.from_numpy(data))
+    oloc, oscale = go_ikss_oracle(data)
+    assert float(loc) == pytest.approx(oloc, abs=abs_loc)
+    assert float(scale) == pytest.approx(oscale, rel=rel_scale)
+    if contaminated:
+        assert abs(oscale - 5.0) < 1.0
+
+
+def test_ikss_constant_window_is_a_go_hang_the_port_guards():
+    """The reference loops forever on a constant window (the oracle gives
+    up after max_iter); the port returns (value, scale 0), as the JAX
+    package does."""
+    from nightlight_tpu_torch.ops.stats import ikss
+    from test_go_oracles import go_ikss_oracle
+
+    data = np.full(512, 7.25, np.float32)
+    oloc, _ = go_ikss_oracle(data, max_iter=50)
+    assert oloc is None
+    loc, scale = ikss(torch.from_numpy(data))
+    assert float(loc) == 7.25 and float(scale) == 0.0
+
+
+def _hist_cases():
+    rng = np.random.default_rng(42)
+    gauss = np.clip(rng.normal(0.3, 0.02, size=4096).astype(np.float32), 0.0, 1.0)
+    edge = np.concatenate([np.full(500, 0.01, np.float32),
+                           rng.uniform(0.0, 1.0, 1500).astype(np.float32)])
+    single = np.full(1000, 0.5, np.float32)
+    single[0], single[-1] = 0.0, 1.0
+    return [(gauss, float(gauss.min()), float(gauss.max()), 64),
+            (gauss, float(gauss.min()), float(gauss.max()), 256),
+            (edge, 0.0, 1.0, 64),      # the peak in bin 1 clamps the ring walk
+            (single, 0.0, 1.0, 64)]    # the peak bin alone covers one sigma
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_histogram_scale_loc_matches_go_oracle(case):
+    """-lsEst 4's histogram peak and ring half-width (stats.go:640-688)."""
+    from nightlight_tpu_torch.ops.stats import histogram_scale_loc
+    from test_go_oracles import go_histogram_scale_loc_oracle
+
+    data, vmin, vmax, bins = _hist_cases()[case]
+    loc, scale = histogram_scale_loc(torch.from_numpy(data), torch.tensor(np.float32(vmin)),
+                                     torch.tensor(np.float32(vmax)), bins)
+    oloc, oscale = go_histogram_scale_loc_oracle(data, vmin, vmax, bins)
+    assert float(loc) == pytest.approx(oloc, abs=1e-6)
+    assert float(scale) == pytest.approx(oscale, abs=1e-6)
+
+
+def test_estimate_noise_matches_go_oracle():
+    """Immerkaer noise (noise.go:32-55) on noise and on a clean gradient."""
+    from nightlight_tpu_torch.ops.stats import estimate_noise
+    from test_go_oracles import go_estimate_noise_oracle
+
+    img = np.random.default_rng(42).normal(100.0, 3.0, size=(24, 32)).astype(np.float32)
+    assert float(estimate_noise(torch.from_numpy(img))) == pytest.approx(
+        go_estimate_noise_oracle(img), rel=1e-4)
+    grad = np.outer(np.arange(24, dtype=np.float32), np.ones(32, np.float32))
+    assert float(estimate_noise(torch.from_numpy(grad))) == pytest.approx(
+        go_estimate_noise_oracle(grad), abs=1e-6)
+
+
+@pytest.mark.parametrize("locs", [
+    [0.11, 0.09, 0.10, 0.30, 0.05],
+    [0.2, 0.1],
+    [1.0],
+    [0.5, float("nan"), 0.1, 0.11],
+    [float("nan"), float("nan"), 7.0],
+])
+def test_select_median_loc_matches_go_oracle(locs):
+    """%location reference selection (refframe.go:229-258): NaN frames
+    dropped from the median and never chosen."""
+    from types import SimpleNamespace
+
+    from nightlight_tpu_torch.pipeline.ops_ref import _select_median_loc
+    from test_go_oracles import go_select_median_loc_oracle
+
+    frames = [SimpleNamespace(id=i, stats=SimpleNamespace(location=v))
+              for i, v in enumerate(locs)]
+    frame, median = _select_median_loc(frames)
+    oidx, omedian = go_select_median_loc_oracle(locs)
+    assert frame.id == oidx
+    assert median == pytest.approx(omedian, rel=1e-6)
+
+
+def test_select_median_loc_all_nan_raises_like_go():
+    from types import SimpleNamespace
+
+    from nightlight_tpu_torch.pipeline.ops_ref import _select_median_loc
+
+    with pytest.raises(ValueError):
+        _select_median_loc([SimpleNamespace(id=i, stats=SimpleNamespace(location=float("nan")))
+                            for i in range(3)])
+
+
+def _stretch_decisions():
+    rng = np.random.default_rng(42)
+    fixed = [(0.05, 0.0015), (0.2, 0.001), (0.05, 0.005), (0.001, 0.003)]
+    return fixed + [(float(rng.uniform(0.0005, 0.3)), float(rng.uniform(0.0002, 0.008)))
+                    for _ in range(60)]
+
+
+def test_stretch_decision_matches_go_oracle():
+    """One auto-stretch round (stretch.go:117-155) at the OpStretchIterative
+    targets: a gamma round, a black shift, done, the NaN quirk (loc below
+    scale: gamma 1, done) and a randomized sweep. The action exactly; a
+    gamma within one 0.01 step of the oracle's float32 grid (the port
+    searches an arange grid, as the JAX package), a black shift's location
+    within 1e-6."""
+    from nightlight_tpu_torch.ops.autostretch import (ACT_BLACK, ACT_DONE, ACT_DONE_GAMMA,
+                                                      ACT_GAMMA, stretch_decision)
+    from test_go_oracles import go_stretch_decision_oracle
+
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    actions = []
+    for loc, scale in _stretch_decisions():
+        a, p = stretch_decision(f32(loc), f32(scale), f32(0.1), f32(0.004))
+        oa, op_ = go_stretch_decision_oracle(loc, scale, 0.1, 0.004)
+        assert float(a) == oa, (loc, scale)
+        if oa == ACT_GAMMA:
+            assert abs(float(p) - op_) <= 0.0101, (loc, scale)
+        elif oa == ACT_BLACK:
+            assert float(p) == pytest.approx(op_, rel=1e-6)
+        actions.append(oa)
+    assert actions[:4] == [ACT_GAMMA, ACT_BLACK, ACT_DONE, ACT_DONE_GAMMA]
