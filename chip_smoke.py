@@ -41,6 +41,21 @@
    the clip line where expected, the output FITS and the kernel launch
    counts of each run; then holds two small stacks on the card (defaults;
    -stMode 4 -lsEst 1) against the same stacks on the CPU.
+5a. The device mesh (nightlight_tpu_torch/parallel/mesh.py), 4 shards on
+   cuda:0, on step 4's lights: shard4_job16, tests/test_rest.py's
+   live-stacking job (fixed sigmas) on 16 lights through `run_op` with
+   and without c.mesh, held to the context-job band (rtol 1e-4, atol
+   1e-3) with equal log lines and 4x the K1 launches; shard4_auto16, the
+   `stack` preset's defaults on 16 lights + dark under the mesh (fused
+   executor off, mode 3, the sharded goal-seek on target, a finite
+   output; the share of pixels apart from the unsharded run printed);
+   mesh_step16, run_sharded_full_stack and the halo step that
+   sharded_full_pipeline_step_auto picks on 16 lights with the fixture's
+   drift, each bit for bit the unsharded _full_pipeline_step, and
+   stack_sharded against stack on the 16-light cube (K1) and on 30 frames
+   of sky (linear fit, K2), bit for bit with equal clip counts and 4x the
+   launches; cli_shard, the CLI's `stack -shard` (one card: the
+   one-device line and an output bit for bit the run without -shard).
 5b. The one-shot-colour chain on RGGB mosaics of the same recipe (16
    lights, mono dark): osc12_G (-debayer G -stMode 3, BASELINE config #3,
    fused), osc16_R_chain (-debayer R with both debands, -preScale 1.5,
@@ -499,12 +514,12 @@ def kernel_cases(size: int, stack_cuda, gather_cuda, kernels):
     lib = kernels.library()
     out_k = torch.empty_like(pk)
     ok_buf = torch.empty_like(ok_k)
-    stream = kernels.stream_handle(dev)
+    target = kernels.launch_on(dev)
 
     def gather_alone():
         kernels.check(lib.nl_gather_patches(img.data_ptr(), size, size, cys.data_ptr(),
                                             cxs.data_ptr(), k, r, out_k.data_ptr(),
-                                            ok_buf.data_ptr(), stream), "gather_patches")
+                                            ok_buf.data_ptr(), *target), "gather_patches")
 
     alone = kernel_ms(gather_alone)
     check(torch.equal(out_k, pk) and torch.equal(ok_buf, ok_k), "gather_patches: C entry differs")
@@ -1074,6 +1089,258 @@ def serve_batches16(cli, fits_mod, kernels, serve_dir: str, size: int, record) -
     record("run_batches16", run_counts, run_seconds, run_peak)
 
 
+# the smoke run's device mesh: 4 shards, all on one card
+SHARDS = 4
+MESH_DEVICE = "cuda:0"
+ONE_DEVICE_LINE = "-shard requested but only one device attached; running unsharded"
+
+
+def shard_mesh():
+    import torch
+
+    from nightlight_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh([torch.device(MESH_DEVICE)] * SHARDS)
+
+
+def run_op_on(cli, kernels, op, mesh, log_name: str):
+    """Run an operator job through the port's `run_op` on cuda:0 with
+    c.mesh = mesh (None: unsharded), the launch counts set to 0 just
+    before; returns (log, seconds, counts, peak GiB)."""
+    import torch
+
+    from nightlight_tpu_torch.pipeline.context import new_context
+
+    log = io.StringIO()
+    c = new_context(log=log, device=MESH_DEVICE)
+    c.mesh = mesh
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cli.run_op(op, c)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / (1 << 30)
+    text = log.getvalue()
+    write_log(log_name, text)
+    return text, seconds, counts, peak
+
+
+def pixels_apart(a, b) -> int:
+    """Pixels of two images that differ (NaN equal to NaN)."""
+    return int((~((a == b) | (np.isnan(a) & np.isnan(b)))).sum())
+
+
+def shard4_job16(cli, fits_mod, kernels, lights, size: int, record) -> None:
+    """tests/test_rest.py's live-stacking job (fixed sigmas, as
+    serve_batches16 runs it) on 16 lights, unsharded and then with a mesh of
+    4 shards on cuda:0. Under the mesh the batch takes the per-frame
+    projection; unsharded it may take the fused shift-warp. Held to the
+    context-job band of tests/test_torch_mesh.py (rtol 1e-4, atol 1e-3; the
+    CPU run is bit for bit), equal log lines, 4x the K1 launches."""
+    from nightlight_tpu_torch.pipeline import op_from_dict
+
+    def job(out):
+        d = serve_job(out)
+        d["steps"][0]["filePatterns"] = list(lights[:16])
+        return op_from_dict(d)
+
+    log_u, sec_u, cnt_u, peak_u = run_op_on(cli, kernels, job("job16_plain.fits"), None,
+                                            "chip_smoke_job16_unsharded.log")
+    log_s, sec_s, cnt_s, peak_s = run_op_on(cli, kernels, job("job16_shard.fits"),
+                                            shard_mesh(), "chip_smoke_shard4_job16.log")
+    plain = check_output(fits_mod, "job16_plain.fits", size)
+    shard = check_output(fits_mod, "job16_shard.fits", size)
+    apart = pixels_apart(shard, plain)
+    same_lines = (job_lines(log_s.replace("job16_shard", "X"))
+                  == job_lines(log_u.replace("job16_plain", "X")))
+    say(f"shard4_job16 (16 lights, live-stacking job, {SHARDS} shards on cuda:0): wall "
+        f"{sec_s:.3f} s peak {peak_s:.2f} GiB launches {cnt_s}; unsharded wall {sec_u:.3f} s "
+        f"peak {peak_u:.2f} GiB launches {cnt_u}; pixels apart {apart}, log lines equal "
+        f"{same_lines}")
+    check("Error" not in log_s and "Error" not in log_u, "shard4_job16: error in a log")
+    check("Stacking 16 frames with stacking mode 3 " in log_s, "shard4_job16: stacking line")
+    check(same_lines, "shard4_job16: log lines differ from the unsharded run")
+    check(cnt_u["stack_clip"] > 0 and cnt_s["stack_clip"] == SHARDS * cnt_u["stack_clip"],
+          f"shard4_job16: K1 launches {cnt_s['stack_clip']} against {cnt_u['stack_clip']}")
+    check(cnt_s["gather_patches"] == cnt_u["gather_patches"] > 0,
+          "shard4_job16: gather_patches launches")
+    m = np.isfinite(plain) & np.isfinite(shard)
+    check(bool((np.isnan(plain) == np.isnan(shard)).all()) and m.mean() > 0.99 and
+          np.allclose(shard[m], plain[m], rtol=1e-4, atol=1e-3),
+          "shard4_job16: output outside the band of the unsharded one")
+    record("shard4_job16", cnt_s, sec_s, peak_s)
+    record("job16_unsharded", cnt_u, sec_u, peak_u)
+    for name in ("job16_plain.fits", "job16_shard.fits"):
+        os.remove(name)
+
+
+def shard4_auto16(cli, fits_mod, kernels, lights, size: int, record) -> None:
+    """The `stack` preset at its defaults on 16 lights + dark (winsorized,
+    goal-seek) with a mesh of 4 shards on cuda:0, then without: the fused
+    executor off under the mesh, both clip percentages on target, a finite
+    output; the share of pixels apart from the unsharded run is printed
+    (the sharded search subsamples per shard and may settle elsewhere)."""
+    from nightlight_tpu_torch.models.presets import build_command_seq
+
+    def op(out):
+        args = cli.build_parser().parse_args(["-out", out, "-dark", "dark.fits", "-jpg", "",
+                                              "-log", "", "stack", *lights[:16]])
+        cli.apply_command_defaults(args)
+        return build_command_seq(args)
+
+    log_s, sec_s, cnt_s, peak_s = run_op_on(cli, kernels, op("auto16_shard.fits"),
+                                            shard_mesh(), "chip_smoke_shard4_auto16.log")
+    log_u, sec_u, cnt_u, peak_u = run_op_on(cli, kernels, op("auto16_plain.fits"), None,
+                                            "chip_smoke_auto16_unsharded.log")
+    shard = check_output(fits_mod, "auto16_shard.fits", size)
+    plain = check_output(fits_mod, "auto16_plain.fits", size)
+    share = pixels_apart(shard, plain) / shard.size
+    notes = [ln for ln in log_s.splitlines() if ln.startswith(("Clipped", "Reached", PER_FRAME))]
+    say(f"shard4_auto16 (16 lights + dark, defaults, {SHARDS} shards on cuda:0): wall "
+        f"{sec_s:.3f} s peak {peak_s:.2f} GiB launches {cnt_s} {notes}; unsharded wall "
+        f"{sec_u:.3f} s peak {peak_u:.2f} GiB launches {cnt_u}; share of pixels apart "
+        f"{share:.6f}")
+    check("Error" not in log_s, "shard4_auto16: error in the log")
+    check(f"{PER_FRAME}sharded run (mesh active)); using the per-frame operator path." in log_s,
+          "shard4_auto16: fused-off line missing")
+    check("Stacking 16 frames with stacking mode 3 " in log_s, "shard4_auto16: stacking line")
+    check("Reached 0.50% and 0.50% clipping" in log_s, "shard4_auto16: goal-seek off target")
+    clipped = re.findall(r"Clipped low \d+ \(([\d.]+)%\) high \d+ \(([\d.]+)%\)", log_s)
+    check(clipped == [("0.50", "0.50")], f"shard4_auto16: clip line {clipped}")
+    check(bool(np.isfinite(shard).all()), "shard4_auto16: output not finite")
+    check(cnt_s["stack_clip"] > 0 and cnt_s["stack_clip"] % SHARDS == 0,
+          f"shard4_auto16: K1 launches {cnt_s['stack_clip']}")
+    record("shard4_auto16", cnt_s, sec_s, peak_s)
+    record("auto16_unsharded", cnt_u, sec_u, peak_u)
+    for name in ("auto16_shard.fits", "auto16_plain.fits"):
+        os.remove(name)
+
+
+def mesh_step16(fits_mod, kernels, lights, size: int, record) -> None:
+    """parallel/mesh.py at full size on 4 shards of cuda:0: the gather-warp
+    step (run_sharded_full_stack) and the step the auto dispatcher picks
+    (the halo exchange) on 16 lights with the fixture's drift plus a
+    sub-pixel offset, each bit for bit against the unsharded
+    _full_pipeline_step; stack_sharded against stack on the 16-light cube
+    (winsorized, K1) and on 30 frames of sky with outliers (linear fit,
+    K2), bit for bit with equal clip counts."""
+    import torch
+
+    from nightlight_tpu_torch.ops import stack as tstk
+    from nightlight_tpu_torch.parallel import mesh as pmesh
+
+    dev = torch.device(MESH_DEVICE)
+    mesh = shard_mesh()
+    frames = np.stack([fits_mod.read_file(n).to_numpy() for n in lights[:16]])
+    dark = fits_mod.read_file("dark.fits").to_numpy()
+    flat = np.random.default_rng(7).uniform(0.8, 1.0, size=dark.shape).astype(np.float32)
+    invs = np.array([[1.0, 0.0, 4.0 * i + 0.25, 0.0, 1.0, -3.0 * i - 0.4] for i in range(16)],
+                    np.float32)
+    ones = torch.ones(16, device=dev)
+    counts, walls = {k: 0 for k in kernels.KERNEL_NAMES}, {}
+    torch.cuda.reset_peak_memory_stats()
+
+    def timed(name, fn):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        got = kernels.launch_counts()
+        for k, v in got.items():
+            counts[k] += v
+        return out, got
+
+    ref, ref_counts = timed("unsharded", lambda: pmesh._full_pipeline_step(
+        torch.from_numpy(frames).to(dev), torch.from_numpy(dark).to(dev),
+        torch.from_numpy(flat).to(dev), float(flat.max()), ones, ones, ones, 1.0, 1.0, invs,
+        2.75, 2.75, mode=2))
+    want = ref[0].cpu().numpy()
+    gathered, g_counts = timed("gather_step", lambda: pmesh.run_sharded_full_stack(
+        frames, dark, flat, invs, mesh=mesh))
+    log = io.StringIO()
+    step = pmesh.sharded_full_pipeline_step_auto(mesh, invs, dest_h=size, dest_w=size, log=log)
+    placed = [pmesh.shard_rows(mesh, torch.from_numpy(a)) for a in (frames, dark, flat)]
+    halo, h_counts = timed("halo_step", lambda: step(*placed, float(flat.max()), ones, ones,
+                                                     ones, 1.0, 1.0, invs, 2.75, 2.75))
+    del placed
+    say(f"mesh_step16: {log.getvalue().strip()}; unsharded {walls['unsharded']:.3f} s "
+        f"launches {ref_counts}, gather step {walls['gather_step']:.3f} s launches "
+        f"{g_counts}, halo step {walls['halo_step']:.3f} s launches {h_counts}")
+    check(log.getvalue().startswith("Halo warp: exchanging 64 boundary rows (batch needs 47)"),
+          f"mesh_step16: dispatcher log {log.getvalue()!r}")
+    for name, out, got in (("gather step", gathered, g_counts), ("halo step", halo, h_counts)):
+        apart = pixels_apart(pmesh.gather(out[0]).cpu().numpy(), want)
+        same = (int(out[1]), int(out[2])) == (int(ref[1]), int(ref[2]))
+        say(f"mesh_step16 {name} vs unsharded: pixels apart {apart}, clip counts equal {same} "
+            f"({int(out[1])}, {int(out[2])})")
+        check(apart == 0 and same, f"mesh_step16: {name} differs from the unsharded step")
+        check(got["stack_clip"] == SHARDS * ref_counts["stack_clip"] > 0,
+              f"mesh_step16: {name} K1 launches {got['stack_clip']}")
+    del ref, gathered, halo
+    cube = torch.from_numpy(frames).to(dev)
+    del frames
+    gen = torch.Generator(device=dev).manual_seed(9)
+    sky30 = frames_with_outliers(gen, 30, size * size, dev).reshape(30, size, size)
+    for name, x, mode, kernel in (("winsorized 16", cube, tstk.StackMode.WinsorSigma,
+                                   "stack_clip"),
+                                  ("linear fit 30", sky30, tstk.StackMode.LinearFit,
+                                   "stack_linfit")):
+        u, u_counts = timed(f"stack {name}", lambda: tstk.stack(x, mode))
+        sh, s_counts = timed(f"stack_sharded {name}", lambda: tstk.stack_sharded(x, mesh, mode))
+        apart = pixels_apart(pmesh.gather(sh[0]).cpu().numpy(), u[0].cpu().numpy())
+        same = (int(sh[1]), int(sh[2])) == (int(u[1]), int(u[2]))
+        say(f"mesh_step16 stack_sharded {name} vs stack: pixels apart {apart}, clip counts "
+            f"({int(sh[1])}, {int(sh[2])}) equal {same}; launches {s_counts[kernel]} against "
+            f"{u_counts[kernel]}; walls {walls[f'stack_sharded {name}']:.4f} / "
+            f"{walls[f'stack {name}']:.4f} s")
+        check(apart == 0 and same, f"mesh_step16: stack_sharded {name} differs from stack")
+        check(s_counts[kernel] == SHARDS * u_counts[kernel] > 0,
+              f"mesh_step16: {name} {kernel} launches {s_counts[kernel]}")
+        del u, sh
+    peak = torch.cuda.max_memory_allocated() / (1 << 30)
+    record("mesh_step16", counts, sum(walls.values()), peak)
+
+
+def cli_shard(cli, fits_mod, kernels, lights, size: int, record) -> None:
+    """The CLI's `stack -shard` (defaults, -dark, 8 lights) on the card:
+    with one card the JAX CLI's one-device line and an output bit for bit
+    the run without -shard; with more, a mesh over every card."""
+    import torch
+
+    count = torch.cuda.device_count()
+    base = ["-dark", "dark.fits", "-jpg", "", "-log", ""]
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rc, log, seconds = run_cli(cli, ["-out", "shard8.fits", *base, "-shard", "stack",
+                                     *lights[:8]], "chip_smoke_cli_shard.log")
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / (1 << 30)
+    check(rc == 0 and "Error:" not in log, f"cli_shard: rc {rc}; log tail {log[-2000:]}")
+    shard = check_output(fits_mod, "shard8.fits", size)
+    if count == 1:
+        rc_p, log_p, _ = run_cli(cli, ["-out", "plain8.fits", *base, "stack", *lights[:8]],
+                                 "chip_smoke_cli_plain.log")
+        plain = check_output(fits_mod, "plain8.fits", size)
+        same = bool(np.array_equal(shard, plain, equal_nan=True))
+        say(f"cli_shard (one card): rc {rc} wall {seconds:.3f} s launches {counts}; "
+            f"one-device line {ONE_DEVICE_LINE in log.splitlines()}; output bit for bit the "
+            f"run without -shard {same}")
+        check(rc_p == 0 and ONE_DEVICE_LINE in log.splitlines(), "cli_shard: one-device line")
+        check(same, "cli_shard: output differs from the run without -shard")
+        os.remove("plain8.fits")
+    else:
+        line = f"Sharding frames over {count} devices"
+        say(f"cli_shard ({count} cards): rc {rc} wall {seconds:.3f} s launches {counts}; "
+            f"'{line}' {line in log.splitlines()}")
+        check(line in log.splitlines(), f"cli_shard: '{line}' missing")
+    record("cli_shard", counts, seconds, peak)
+    os.remove("shard8.fits")
+
+
 def serve_two_jobs(fixtures, fits_mod, work: str) -> str:
     """Two 512^2 live-stacking jobs POSTed together: the second goes out
     once the first streams a line from inside the job lock, so it must
@@ -1322,6 +1589,20 @@ def main() -> int:
             check_output(nlfits, out, size)
             os.remove(out)
 
+        def record(name, counts, seconds, peak):
+            for k, v in counts.items():
+                totals[k] += v
+            per_stack[name] = counts
+            walls[name] = seconds
+            peaks[name] = peak
+
+        # the device mesh (parallel/mesh.py): 4 shards on cuda:0
+        shard4_job16(cli, nlfits, kernels, lights, size, record)
+        shard4_auto16(cli, nlfits, kernels, lights, size, record)
+        mesh_step16(nlfits, kernels, lights, size, record)
+        cli_shard(cli, nlfits, kernels, lights, size, record)
+        torch.cuda.empty_cache()
+
         # 16 lights stay for the served live-stacking job (serve_batches16)
         serve_dir = os.path.join(work, "serve")
         os.makedirs(serve_dir)
@@ -1401,13 +1682,6 @@ def main() -> int:
                 check(os.path.getsize(f"{name}.{ext}") > 0, f"{name}: empty .{ext}")
         os.chdir(work)
         shutil.rmtree(osc, ignore_errors=True)
-
-        def record(name, counts, seconds, peak):
-            for k, v in counts.items():
-                totals[k] += v
-            per_stack[name] = counts
-            walls[name] = seconds
-            peaks[name] = peak
 
         color_runs(cli, nlfits, fixtures, kernels, work, size, record)
         small_rgb_gpu_vs_cpu(cli, nlfits, fixtures, work)

@@ -2,7 +2,8 @@
 (reference: cmd/nightlight/main.go): the same flags, per-command defaults,
 %auto filename derivation, job-JSON echo and log lines. ``run`` executes a
 JSON job file; ``serve`` starts the REST job server and web UI
-(serve/rest.py). Only the -shard flag is not ported.
+(serve/rest.py). ``-shard`` row-shards the stack over every attached card
+through the port's single-process device mesh (parallel/mesh.py).
 
 On a machine with a GPU the pipeline runs on cuda:0, with TF32 disabled for
 matrix products and cuDNN so float32 math stays float32.
@@ -62,7 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
     a("-trace", default="", help="write a torch.profiler trace of the run to this directory"
       " (the analog of the reference's -cpuprofile/-memprofile)")
     a("-shard", action="store_true",
-      help="row-shard frames across all attached devices (not ported yet: raises)")
+      help="row-shard frames across all attached devices (parallel.mesh device mesh);"
+      " the stack and its goal-seek then run per device, with copies between cards")
 
     a("-out", default="out.fits", help="save output to file")
     a("-jpg", default="%auto", help="save 8bit preview of output as JPEG")
@@ -334,14 +336,25 @@ def main(argv=None, device=None) -> int:
         device = torch.device(device) if device is not None else default_device()
     if args.allowAbsolutePaths:
         opmod.ALLOW_ABSOLUTE_PATHS = True
+    mesh = None
+    if args.shard:
+        from nightlight_tpu_torch.parallel.mesh import make_mesh
+
+        on_cards = device is None or torch.device(device).type == "cuda"
+        cards = torch.cuda.device_count() if on_cards else 1
+        if cards > 1:
+            mesh = make_mesh()
+            log_writer.write(f"Sharding frames over {cards} devices\n")
+        else:
+            log_writer.write("-shard requested but only one device attached; "
+                             "running unsharded\n")
 
     profiler = None
     try:
-        if args.shard:
-            raise NotImplementedError("-shard is not ported yet (queued in ROADMAP.md)")
         if pipeline:
             c = new_context(log=log_writer, st_memory=args.stMemory,
                             ls_mode=LSEstimatorMode(args.lsEst), device=device)
+            c.mesh = mesh
             if args.trace:
                 activities = [torch.profiler.ProfilerActivity.CPU]
                 if c.device.type == "cuda":

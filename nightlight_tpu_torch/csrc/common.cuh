@@ -2,7 +2,8 @@
 //
 // Every kernel here is launched from Python through ctypes (see
 // nightlight_tpu_torch/kernels.py): the C entry points take raw device
-// pointers and the caller's CUDA stream, launch, and return
+// pointers, the ordinal of the device they lie on and the caller's CUDA
+// stream of that device, launch, and return
 // cudaGetLastError() so the wrapper can raise on a refused launch.
 #pragma once
 
@@ -82,5 +83,16 @@ __device__ __forceinline__ void write_clip_partials(int lo, int hi, int* partial
 inline int blocks_for(long long p, int threads) {
     return (int)((p + threads - 1) / threads);
 }
+
+// Every entry point starts here. nvcc links this library's CUDA runtime
+// statically, so its current device is its own, apart from PyTorch's: a
+// launch onto a stream of card k must first make k the calling thread's
+// current device of this runtime (cudaFuncSetAttribute also applies to the
+// current device only).
+#define NL_USE_DEVICE(device)                       \
+    do {                                            \
+        cudaError_t nl_e_ = cudaSetDevice(device);  \
+        if (nl_e_ != cudaSuccess) return (int)nl_e_; \
+    } while (0)
 
 }  // namespace nl

@@ -94,7 +94,8 @@ __global__ void __launch_bounds__(kThreads)
 // 2^31 (the wrapper checks).
 extern "C" int nl_gather_patches(const float* img, int h, int w, const int* cys,
                                  const int* cxs, int k, int radius, float* out, uint8_t* ok,
-                                 void* stream) {
+                                 int device, void* stream) {
+    NL_USE_DEVICE(device);
     if (k < 0 || radius < 0) return (int)cudaErrorInvalidValue;
     if (k == 0) return (int)cudaSuccess;
     const int size = 2 * radius + 1;

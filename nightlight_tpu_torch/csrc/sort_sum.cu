@@ -48,6 +48,8 @@
 // aligned rows, so it takes them only when P % 4 == 0 and x is 16-byte
 // aligned; otherwise, and for the last partial tile, the same kernel loads
 // each thread's column with plain loads (the per-thread path).
+#include <mutex>
+
 #include "bulk_ring.cuh"
 #include "common.cuh"
 #include "sortnet.cuh"
@@ -207,21 +209,31 @@ __global__ void __launch_bounds__(TILE, ring_min_blocks(TILE))
     }
 }
 
+// the most devices whose ring attributes prepare_ring remembers
+constexpr int kMaxDevices = 64;
+
 template <int TILE, int R>
 cudaError_t prepare_ring() {
-    // once per instantiation: allow the largest block ring, and prefer the
+    // once per instantiation and device (an attribute is set for the
+    // current device only): allow the largest block ring, and prefer the
     // largest shared-memory carve-out of the SM's 256 KB
-    static const cudaError_t status = [] {
-        cudaError_t e = cudaFuncSetAttribute(sort_sum_ring_kernel<TILE, R>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             kBlockSharedBytes);
+    static std::mutex lock;
+    static int status[kMaxDevices];  // 0: not yet; else the cudaError_t + 1
+    int device = 0;
+    cudaError_t e = cudaGetDevice(&device);
+    if (e != cudaSuccess) return e;
+    if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+    std::lock_guard<std::mutex> guard(lock);
+    if (status[device] == 0) {
+        e = cudaFuncSetAttribute(sort_sum_ring_kernel<TILE, R>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kBlockSharedBytes);
         if (e == cudaSuccess)
             e = cudaFuncSetAttribute(sort_sum_ring_kernel<TILE, R>,
                                      cudaFuncAttributePreferredSharedMemoryCarveout,
                                      (int)cudaSharedmemCarveoutMaxShared);
-        return e;
-    }();
-    return status;
+        status[device] = (int)e + 1;
+    }
+    return (cudaError_t)(status[device] - 1);
 }
 
 template <int TILE, int R>
@@ -259,7 +271,8 @@ cudaError_t launch_ring(const float* x, long long P, int stages, int smem_bytes,
 // Blocks of the ring kernel that fit one SM with `smem_bytes` of dynamic
 // shared memory each (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 extern "C" int nl_sort_sum_ring_blocks_per_sm(int threads, int rows_per_stage, int smem_bytes,
-                                              int* blocks) {
+                                              int device, int* blocks) {
+    NL_USE_DEVICE(device);
 #define NL_RING_OCCUPANCY(T, RR)              \
     if (threads == T && rows_per_stage == RR) \
         return (int)ring_blocks_per_sm<T, RR>(smem_bytes, blocks);
@@ -273,7 +286,8 @@ extern "C" int nl_sort_sum_ring_blocks_per_sm(int threads, int rows_per_stage, i
 // ring_plan), 2 = tiled shared-memory sort (the plan's fields unused).
 extern "C" int nl_sort_sum(const float* x, long long P, int layout, int threads,
                            int rows_per_stage, int stages, int smem_bytes, int grid,
-                           int bulk_tiles, float* out, void* stream) {
+                           int bulk_tiles, float* out, int device, void* stream) {
+    NL_USE_DEVICE(device);
     if (threads <= 0 || threads > 1024) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     if (P > 0) {

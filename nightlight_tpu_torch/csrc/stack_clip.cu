@@ -398,7 +398,8 @@ __global__ void stack_clip_scratch_kernel(const float* __restrict__ frames,
 extern "C" int nl_stack_clip(const float* frames, const float* weights, int n,
                              long long stride, long long Q, float sigma_lo, float sigma_hi,
                              float ref_loc, int winsorize, float* scratch, float* out,
-                             int* partials, void* stream) {
+                             int* partials, int device, void* stream) {
+    NL_USE_DEVICE(device);
     const int threads = 256;
     if (Q > 0) {
         stack_clip_scratch_kernel<<<nl::blocks_for(Q, threads), threads, 0,
@@ -418,7 +419,8 @@ extern "C" int nl_stack_clip(const float* frames, const float* weights, int n,
 extern "C" int nl_stack_clip_onchip(const float* frames, const float* weights, int n,
                                     long long P, float sigma_lo, float sigma_hi, float ref_loc,
                                     int winsorize, int wires, int threads, int smem, float* out,
-                                    int* partials, void* stream) {
+                                    int* partials, int device, void* stream) {
+    NL_USE_DEVICE(device);
     const bool weighted = weights != nullptr;
     long long need = (long long)clip_rows(n, weighted) * threads * 4;
     if (n < 1 || n > wires || threads < 32 || threads > 256 || threads % 32 != 0 || smem < need)

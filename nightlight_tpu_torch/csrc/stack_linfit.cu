@@ -387,7 +387,8 @@ __global__ void __launch_bounds__(256)
 extern "C" int nl_stack_linfit(const float* frames, int n, long long stride, long long Q,
                                float sigma_lo, float sigma_hi, float ref_loc,
                                float* scratch_v, uint8_t* scratch_a, float* out,
-                               int* partials, void* stream) {
+                               int* partials, int device, void* stream) {
+    NL_USE_DEVICE(device);
     const int threads = 256;
     if (Q > 0) {
         stack_linfit_scratch_kernel<<<nl::blocks_for(Q, threads), threads, 0,
@@ -406,7 +407,9 @@ extern "C" int nl_stack_linfit(const float* frames, int n, long long stride, lon
 // _linfit_plan picks all three).
 extern "C" int nl_stack_linfit_onchip(const float* frames, int n, long long P, float sigma_lo,
                                       float sigma_hi, float ref_loc, int wires, int threads,
-                                      int smem, float* out, int* partials, void* stream) {
+                                      int smem, float* out, int* partials, int device,
+                                      void* stream) {
+    NL_USE_DEVICE(device);
     long long need = wires > 64 ? 4LL * n * threads : 0;
     if (n < 1 || n > wires || threads < 32 || threads > 256 || threads % 32 != 0 || smem < need)
         return (int)cudaErrorInvalidValue;

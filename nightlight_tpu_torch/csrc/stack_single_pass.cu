@@ -154,7 +154,9 @@ __global__ void stack_single_pass_kernel(const float* __restrict__ frames, int n
 // Scratch: n rows of Q floats for the median, 2n for MAD.
 extern "C" int nl_stack_single_pass(const float* frames, int n, long long stride, long long Q,
                                     float sigma_lo, float sigma_hi, float ref_loc, int mad,
-                                    float* scratch, float* out, int* partials, void* stream) {
+                                    float* scratch, float* out, int* partials, int device,
+                                    void* stream) {
+    NL_USE_DEVICE(device);
     const int threads = 256;
     if (mad && partials == nullptr) return (int)cudaErrorInvalidValue;
     if (Q > 0) {
@@ -175,7 +177,8 @@ extern "C" int nl_stack_single_pass(const float* frames, int n, long long stride
 extern "C" int nl_stack_single_pass_onchip(const float* frames, int n, long long P,
                                            float sigma_lo, float sigma_hi, float ref_loc, int mad,
                                            int wires, int threads, int smem, float* out,
-                                           int* partials, void* stream) {
+                                           int* partials, int device, void* stream) {
+    NL_USE_DEVICE(device);
     long long need = wires > 64 ? 4LL * n * threads : 0;
     if (n < 1 || n > wires || threads < 32 || threads > 256 || threads % 32 != 0 ||
         smem < need || (mad && partials == nullptr))

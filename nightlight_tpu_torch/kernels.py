@@ -13,7 +13,13 @@ port on a machine without ``nvcc``. A wrapper only asks for the library when
 it is handed a CUDA tensor, and a build or launch failure raises.
 
 Every wrapper counts its launches here (``count_launch``), so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels; the counts are per kernel,
+summed over every card and thread.
+
+Every C entry that launches takes the ordinal of the card its tensors lie
+on and PyTorch's current stream of that card (``launch_on``), so the
+kernels run on any ``cuda:k``: a device mesh (parallel/mesh.py) launches
+each shard's kernel on its own card.
 """
 
 from __future__ import annotations
@@ -137,29 +143,32 @@ def library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
                                  ctypes.c_longlong, ctypes.c_float)
+            # every launching entry ends in (device ordinal, stream)
             lib.nl_stack_clip.argtypes = [vp, vp, i32, i64, i64, f32, f32, f32, i32,
-                                          vp, vp, vp, vp]
+                                          vp, vp, vp, i32, vp]
             lib.nl_stack_clip.restype = i32
             lib.nl_stack_linfit.argtypes = [vp, i32, i64, i64, f32, f32, f32,
-                                            vp, vp, vp, vp, vp]
+                                            vp, vp, vp, vp, i32, vp]
             lib.nl_stack_linfit.restype = i32
             lib.nl_stack_clip_onchip.argtypes = [vp, vp, i32, i64, f32, f32, f32, i32,
-                                                 i32, i32, i32, vp, vp, vp]
+                                                 i32, i32, i32, vp, vp, i32, vp]
             lib.nl_stack_clip_onchip.restype = i32
             lib.nl_stack_linfit_onchip.argtypes = [vp, i32, i64, f32, f32, f32, i32, i32,
-                                                   i32, vp, vp, vp]
+                                                   i32, vp, vp, i32, vp]
             lib.nl_stack_linfit_onchip.restype = i32
             lib.nl_stack_single_pass.argtypes = [vp, i32, i64, i64, f32, f32, f32, i32,
-                                                 vp, vp, vp, vp]
+                                                 vp, vp, vp, i32, vp]
             lib.nl_stack_single_pass.restype = i32
             lib.nl_stack_single_pass_onchip.argtypes = [vp, i32, i64, f32, f32, f32, i32, i32,
-                                                        i32, i32, vp, vp, vp]
+                                                        i32, i32, vp, vp, i32, vp]
             lib.nl_stack_single_pass_onchip.restype = i32
-            lib.nl_sort_sum.argtypes = [vp, i64, i32, i32, i32, i32, i32, i32, i32, vp, vp]
+            lib.nl_sort_sum.argtypes = [vp, i64, i32, i32, i32, i32, i32, i32, i32, vp,
+                                        i32, vp]
             lib.nl_sort_sum.restype = i32
-            lib.nl_sort_sum_ring_blocks_per_sm.argtypes = [i32, i32, i32, vp]
+            lib.nl_sort_sum_ring_blocks_per_sm.argtypes = [i32, i32, i32, i32, vp]
             lib.nl_sort_sum_ring_blocks_per_sm.restype = i32
-            lib.nl_gather_patches.argtypes = [vp, i32, i32, vp, vp, i32, i32, vp, vp, vp]
+            lib.nl_gather_patches.argtypes = [vp, i32, i32, vp, vp, i32, i32, vp, vp,
+                                              i32, vp]
             lib.nl_gather_patches.restype = i32
             _lib = lib
     return _lib
@@ -170,17 +179,19 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
 
 
-def stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def launch_on(device: torch.device) -> tuple:
+    """The (device ordinal, stream) pair that ends every launching C entry:
+    the entry makes the ordinal its runtime's current device and launches
+    on PyTorch's current stream of that card."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return index, torch.cuda.current_stream(device).cuda_stream
 
 
 def require_cuda(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
-    """Raise unless `t` is a contiguous CUDA tensor of `dtype`."""
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` (on any
+    card: the entry points take the device)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.device.index not in (None, 0):
-        # the library's own CUDA runtime launches on its current device, 0
-        raise ValueError(f"{name}: the kernels run on cuda:0, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():

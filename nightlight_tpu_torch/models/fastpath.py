@@ -141,6 +141,8 @@ def preprocess_frames(frames: list, dark, flat, flat_max, spec,
 def fused_batch_eligible(images, c) -> tuple[bool, str | None]:
     """The fused executor handles uniform 2D batches (mono or one CFA
     mosaic) on the default estimator. Returns (eligible, reason when not)."""
+    if c.mesh is not None:  # sharded runs use the per-frame + mesh path
+        return False, "sharded run (mesh active)"
     if c.ls_estimator_mode != LSEstimatorMode.SCMedianQn:
         return False, f"non-default location/scale estimator {int(c.ls_estimator_mode)}"
     if not images:

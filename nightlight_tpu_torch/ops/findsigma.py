@@ -12,16 +12,20 @@ the exact clip counts, and a subsampled search that lands off target is
 repeated at full resolution.
 
 The search runs on the host, one kernel launch (three for a Newton round)
-and one read of the clip totals per round. All bracket and percentage
+and one read of the clip totals per round; over a device mesh, one launch
+per shard and one read of the summed totals. All bracket and percentage
 arithmetic is float32, as in the JAX package's device loop, so both take
 the same decisions on the same counts. Clip counts are int64 throughout.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 
 from nightlight_tpu_torch.ops import stack as stk
+from nightlight_tpu_torch.parallel import mesh as pm
 
 _SEARCH_STRIDE = 17
 _SEARCH_SUBSAMPLE_MIN = 1 << 22
@@ -40,10 +44,28 @@ def _search_subsample(frames, total: int):
     return sub, total * (sub.numel() / flat.numel())
 
 
-def _clips(sub, mode, weights, ref_frame_loc, sig_lo, sig_hi):
-    _, cl, ch = stk.stack(sub, stk.StackMode(mode), weights=weights, sigma_low=sig_lo,
-                          sigma_high=sig_hi, ref_frame_loc=ref_frame_loc)
-    return int(cl), int(ch)
+def _clips_fn(subs, mesh, mode, weights, ref_frame_loc):
+    """The evaluator of one search: (sig_lo, sig_hi) -> (clip_lo, clip_hi)
+    over `subs`, the whole block (mesh None) or one block per mesh shard.
+    Each round launches every shard's stack on its device, sums the counts
+    on the lead device and reads the sums back once, so every shard takes
+    the one host decision (JAX: shard_map with psum'd counts, the
+    while_loops in lockstep)."""
+    devices = mesh.devices if mesh is not None else [subs[0].device]
+    ws = [None if weights is None else weights.to(dev) for dev in devices]
+
+    def clips(sig_lo, sig_hi):
+        lows, highs = [], []
+        for sub, w in zip(subs, ws):
+            _, cl, ch = stk.stack(sub, stk.StackMode(mode), weights=w, sigma_low=sig_lo,
+                                  sigma_high=sig_hi, ref_frame_loc=ref_frame_loc)
+            lows.append(cl)
+            highs.append(ch)
+        if mesh is not None:
+            lows, highs = [pm.psum(lows, mesh)], [pm.psum(highs, mesh)]
+        return int(lows[0]), int(highs[0])
+
+    return clips
 
 
 def _round_perc(clips: int, sub_total: float, target: int) -> int:
@@ -51,19 +73,18 @@ def _round_perc(clips: int, sub_total: float, target: int) -> int:
     return int(np.floor(f32(100.0) * perc + f32(0.5))) - target
 
 
-def _binary_search(frames, weights, ref_frame_loc, target_l, target_h, mode, max_iter,
-                   subsample):
-    """Dual binary search (binarySearchAndStack, stackfindsigma.go:49-100).
-    Returns (sigma history [(lo, hi)], clip history [(cl, ch)])."""
-    total = frames.numel()
-    sub, sub_total = _search_subsample(frames, total) if subsample else (frames, float(total))
+def _binary_search(clips_at, sub_total, target_l, target_h, max_iter):
+    """Dual binary search (binarySearchAndStack, stackfindsigma.go:49-100)
+    over the evaluator clips_at(sig_lo, sig_hi) -> (cl, ch) of a block of
+    sub_total samples. Returns (sigma history [(lo, hi)], clip history
+    [(cl, ch)])."""
     lo_l, lo_r, hi_l, hi_r = f32(1.0), f32(11.0), f32(1.0), f32(11.0)
     hist, clips = [], []
     i = 0
     while True:
         lo_m = f32(0.5) * (lo_l + lo_r)
         hi_m = f32(0.5) * (hi_l + hi_r)
-        cl, ch = _clips(sub, mode, weights, ref_frame_loc, lo_m, hi_m)
+        cl, ch = clips_at(lo_m, hi_m)
         hist.append((lo_m, hi_m))
         clips.append((cl, ch))
         delta_l = _round_perc(cl, sub_total, target_l)
@@ -84,20 +105,18 @@ def _binary_search(frames, weights, ref_frame_loc, target_l, target_h, mode, max
             return hist, clips
 
 
-def _newton_search(frames, weights, ref_frame_loc, target_l, target_h, mode, max_iter,
-                   subsample):
+def _newton_search(clips_at, sub_total, target_l, target_h, max_iter):
     """Newton goal-seek for linear fit (newtonMethodAndStack,
-    stackfindsigma.go:101-169, with the high side held to the high target).
-    Returns (sigma history, clip history)."""
-    total = frames.numel()
-    sub, sub_total = _search_subsample(frames, total) if subsample else (frames, float(total))
+    stackfindsigma.go:101-169, with the high side held to the high target),
+    over the evaluator clips_at as in _binary_search. Returns (sigma
+    history, clip history)."""
     eps = f32(0.005)
     st = f32(sub_total)
     sl, sh = f32(6.0), f32(6.0)
     hist, clips = [], []
     i = 0
     while True:
-        cl, ch = _clips(sub, mode, weights, ref_frame_loc, sl, sh)
+        cl, ch = clips_at(sl, sh)
         perc_l = f32(cl) * f32(100.0) / st
         perc_h = f32(ch) * f32(100.0) / st
         delta_l = perc_l - f32(target_l / 100.0)
@@ -107,8 +126,8 @@ def _newton_search(frames, weights, ref_frame_loc, target_l, target_h, mode, max
         hist.append((sl, sh))
         clips.append((cl, ch))
         converged = d_li == 0 and d_hi == 0
-        cl2, _ = _clips(sub, mode, weights, ref_frame_loc, sl + eps, sh)
-        _, ch3 = _clips(sub, mode, weights, ref_frame_loc, sl, sh + eps)
+        cl2, _ = clips_at(sl + eps, sh)
+        _, ch3 = clips_at(sl, sh + eps)
         d_l_diff = (f32(cl2) - f32(cl)) * f32(100.0) / st / eps
         d_h_diff = (f32(ch3) - f32(ch)) * f32(100.0) / st / eps
         stuck = d_l_diff == 0.0 or d_h_diff == 0.0
@@ -123,31 +142,64 @@ def _newton_search(frames, weights, ref_frame_loc, target_l, target_h, mode, max
         sl, sh = new_sl, new_sh
 
 
+def _evaluator(frames, mode, weights, ref_frame_loc, subsample, mesh):
+    """(clips_at, sub_total) of one search: over the whole block, or with
+    a mesh over each shard's block. The sharded subsample is per shard
+    (stride 17 over each shard's flattened block, as shard_map hands JAX's
+    search the local block), and its sample total is the GLOBAL total as
+    float32 times the local ratio, rounded to float32 (JAX's traced
+    float32 arithmetic)."""
+    total = frames.numel()
+    if mesh is None:
+        sub, sub_total = _search_subsample(frames, total) if subsample else (frames,
+                                                                             float(total))
+        return _clips_fn([sub], None, mode, weights, ref_frame_loc), sub_total
+    subs, sub_total = pm.shard_rows(mesh, frames).blocks, f32(total)
+    if subsample:
+        pairs = [_search_subsample(b, 1.0) for b in subs]
+        subs = [sub for sub, _ in pairs]
+        sub_total = f32(f32(total) * f32(pairs[0][1]))
+    return _clips_fn(subs, mesh, mode, weights, ref_frame_loc), sub_total
+
+
 def find_sigmas_and_stack(frames, mode: stk.StackMode, weights=None, ref_frame_loc: float = 0.0,
                           clip_perc_low: float = 0.5, clip_perc_high: float = 0.5,
-                          max_iter: int = 20, log=None):
+                          max_iter: int = 20, log=None, mesh=None, axis: str = "pix"):
     """Goal-seek sigma_low/sigma_high until the clip percentages match the
     targets (to 0.01%), then stack at those sigmas. frames: (N, ...).
-    Returns (stacked, clip_lo, clip_hi, sigma_low, sigma_high)."""
+    Returns (stacked, clip_lo, clip_hi, sigma_low, sigma_high).
+
+    With `mesh` set and a row count that divides it, the whole search runs
+    row-sharded: each round launches every shard's stack and makes one
+    host decision on the summed counts (_clips_fn), and the final
+    full-resolution stack is stack_sharded, its image RowSharded."""
     mode = stk.StackMode(mode)
     if mode == stk.StackMode.Auto:
         mode = stk.auto_select_mode(frames.shape[0])
+    shardable = (mesh is not None and frames.dim() >= 3
+                 and frames.shape[1] % mesh.size == 0)
+    if not shardable:
+        mesh, frames = None, pm.gather(frames)
     if mode not in (stk.StackMode.Sigma, stk.StackMode.WinsorSigma, stk.StackMode.LinearFit):
-        out, cl, ch = stk.stack(frames, mode, weights=weights, ref_frame_loc=ref_frame_loc)
+        out, cl, ch = stk.stack(frames, mode, weights=weights, ref_frame_loc=ref_frame_loc,
+                                mesh=mesh, axis=axis)
         return out, int(cl), int(ch), 0.0, 0.0
 
     total = frames.numel()
     target_l, target_h = int(100 * clip_perc_low), int(100 * clip_perc_high)
-    big = frames[0].numel() >= _SEARCH_SUBSAMPLE_MIN
+    # gated on the GLOBAL pixel count, so sharded and unsharded runs of the
+    # same data decide alike
+    big = math.prod(frames.shape[1:]) >= _SEARCH_SUBSAMPLE_MIN
 
     def run(search, subsample=True):
-        hist, clips = search(frames, weights, ref_frame_loc, target_l, target_h, int(mode),
-                             max_iter, subsample and big)
+        clips_at, sub_total = _evaluator(frames, mode, weights, ref_frame_loc,
+                                         subsample and big, mesh)
+        hist, clips = search(clips_at, sub_total, target_l, target_h, max_iter)
         # one full-resolution stack at the accepted sigmas: the output and
         # the exact counts, which replace the last history entry
         lo, hi = hist[-1]
         out, cl, ch = stk.stack(frames, mode, weights=weights, sigma_low=lo, sigma_high=hi,
-                                ref_frame_loc=ref_frame_loc)
+                                ref_frame_loc=ref_frame_loc, mesh=mesh, axis=axis)
         clips[-1] = (int(cl), int(ch))
         return out, hist, clips
 
@@ -193,5 +245,6 @@ def search_histories(frames, mode: stk.StackMode, weights=None, ref_frame_loc: f
     the JAX package's round by round."""
     mode = stk.StackMode(mode)
     search = _newton_search if mode == stk.StackMode.LinearFit else _binary_search
-    return search(frames, weights, ref_frame_loc, int(100 * clip_perc_low),
-                  int(100 * clip_perc_high), int(mode), max_iter, subsample)
+    clips_at, sub_total = _evaluator(frames, mode, weights, ref_frame_loc, subsample, None)
+    return search(clips_at, sub_total, int(100 * clip_perc_low), int(100 * clip_perc_high),
+                  max_iter)

@@ -65,7 +65,7 @@ def gather_patches_cuda(img, cys, cxs, radius: int):
     ok = torch.empty((k, size, size), dtype=torch.bool, device=img.device)
     err = lib.nl_gather_patches(img.data_ptr(), h, w, cys.data_ptr(), cxs.data_ptr(),
                                 k, int(radius), out.data_ptr(), ok.data_ptr(),
-                                kernels.stream_handle(img.device))
+                                *kernels.launch_on(img.device))
     kernels.check(err, "gather_patches")
     kernels.count_launch("gather_patches")
     return out, ok

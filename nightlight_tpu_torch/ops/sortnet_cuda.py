@@ -165,10 +165,10 @@ def _design(layout: str, design: str | None) -> str | None:
 
 
 @functools.lru_cache(maxsize=None)
-def _blocks_per_sm(threads: int, rows_per_stage: int, smem_bytes: int) -> int:
+def _blocks_per_sm(threads: int, rows_per_stage: int, smem_bytes: int, device: int) -> int:
     blocks = ctypes.c_int()
     kernels.check(kernels.library().nl_sort_sum_ring_blocks_per_sm(
-        threads, rows_per_stage, smem_bytes, ctypes.byref(blocks)), "sort_sum occupancy")
+        threads, rows_per_stage, smem_bytes, device, ctypes.byref(blocks)), "sort_sum occupancy")
     if blocks.value < 1:
         raise RuntimeError(f"sort_sum: no block of {threads} threads and {smem_bytes} bytes "
                            "of shared memory fits an SM")
@@ -181,7 +181,9 @@ def sort_sum_plan(x: torch.Tensor, threads: int = 256) -> RingPlan:
     args = (threads, int(x.shape[1]), x.data_ptr(),
             torch.cuda.get_device_properties(x.device).multi_processor_count)
     plan = ring_plan(*args)
-    return ring_plan(*args, _blocks_per_sm(threads, plan.rows_per_stage, plan.smem_bytes))
+    device = kernels.launch_on(x.device)[0]
+    return ring_plan(*args, _blocks_per_sm(threads, plan.rows_per_stage, plan.smem_bytes,
+                                           device))
 
 
 def sort_sum_cuda(x: torch.Tensor, layout: str = "column", threads: int = 256,
@@ -197,7 +199,7 @@ def sort_sum_cuda(x: torch.Tensor, layout: str = "column", threads: int = 256,
     ring = (plan.rows_per_stage, plan.stages, plan.smem_bytes, plan.grid,
             plan.bulk_tiles) if plan else (0, 0, 0, 0, 0)
     err = kernels.library().nl_sort_sum(x.data_ptr(), p, _CODES[(layout, design)], int(threads),
-                                        *ring, out.data_ptr(), kernels.stream_handle(x.device))
+                                        *ring, out.data_ptr(), *kernels.launch_on(x.device))
     kernels.check(err, "sort_sum")
     kernels.count_launch("sort_sum")
     return out

@@ -1,6 +1,7 @@
 """Stacking engine of the port, mirror of nightlight_tpu/ops/stack.py
 (reference: internal/ops/stack/stack.go): the modes, the auto rule, the
-weights, the mean modes and the dispatch to the clip kernels.
+weights, the mean modes, the dispatch to the clip kernels and the
+row-sharded stack over a device mesh (stack_sharded).
 
 NaN marks a missing sample. Sigma and winsorized clipping (K1), linear fit
 (K2) and median and MAD clipping (K3) run in ops/stack_cuda.py.
@@ -68,10 +69,54 @@ def stack_mean_weighted(frames: torch.Tensor, weights: torch.Tensor,
                        s / torch.where(ws == 0, torch.ones((), device=frames.device), ws))
 
 
+def stack_sharded(frames, mesh, mode: StackMode, weights=None, sigma_low: float = 2.75,
+                  sigma_high: float = 2.75, ref_frame_loc: float = 0.0, axis: str = "pix"):
+    """Row-sharded stacking over a device mesh (parallel/mesh.py), the
+    kernel running PER SHARD (JAX: shard_map over the mesh, a psum of the
+    clip counts).
+
+    Each shard stacks its local (N, H/n, W) block on its device with
+    stack(): the CUDA kernel on a card, the plain version on the CPU. The
+    reduction is per pixel, so the result equals the unsharded stack bit
+    for bit. Every shard is launched before any count is read (none is
+    read here: the counts are summed on the lead device), so on several
+    cards the shards overlap.
+
+    frames: (N, H, W), a tensor or a RowSharded value, H divisible by the
+    mesh size. Returns (stacked (H, W) RowSharded, clip_lo, clip_hi on the
+    lead device)."""
+    from nightlight_tpu_torch.parallel import mesh as pm
+
+    mode = StackMode(mode)
+    if mode == StackMode.Auto:
+        mode = auto_select_mode(frames.shape[0])
+    sharded = pm.shard_rows(mesh, frames)
+    outs, lows, highs = [], [], []
+    for dev, block in zip(mesh.devices, sharded.blocks):
+        w = None if weights is None else weights.to(dev)
+        out, cl, ch = stack(block, mode, weights=w, sigma_low=sigma_low,
+                            sigma_high=sigma_high, ref_frame_loc=ref_frame_loc)
+        outs.append(out)
+        lows.append(cl)
+        highs.append(ch)
+    return (pm.RowSharded(mesh, sharded.shape[1:], outs), pm.psum(lows, mesh),
+            pm.psum(highs, mesh))
+
+
 def stack(frames: torch.Tensor, mode: StackMode, weights=None, sigma_low: float = 2.75,
-          sigma_high: float = 2.75, ref_frame_loc: float = 0.0):
+          sigma_high: float = 2.75, ref_frame_loc: float = 0.0, mesh=None,
+          axis: str = "pix"):
     """Stack (N, ...) frames along axis 0. Returns (stacked, clip_lo,
-    clip_hi), the clip totals as 0-d int64 tensors."""
+    clip_hi), the clip totals as 0-d int64 tensors.
+
+    With `mesh` set and a row count that divides it, the reduction runs
+    row-sharded (stack_sharded) and the stacked image comes back as a
+    RowSharded value. Otherwise a RowSharded input is gathered first."""
+    if mesh is not None and frames.dim() >= 3 and frames.shape[1] % mesh.size == 0:
+        return stack_sharded(frames, mesh, mode, weights=weights, sigma_low=sigma_low,
+                             sigma_high=sigma_high, ref_frame_loc=ref_frame_loc, axis=axis)
+    if not isinstance(frames, torch.Tensor):
+        frames = frames.gather()
     shape = frames.shape[1:]
     flat = frames.reshape(frames.shape[0], -1)
     if not flat.is_contiguous():

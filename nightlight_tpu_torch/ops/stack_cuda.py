@@ -194,14 +194,14 @@ def stack_sigma_cuda(frames, ref_loc, sigma_lo, sigma_hi, weights=None, winsoriz
     plan = _clip_plan(n, p, weights is not None, _force_scratch)
     out = torch.empty(p, dtype=torch.float32, device=frames.device)
     partials, launches = _clip_partials(plan, p, frames.device)
-    stream = kernels.stream_handle(frames.device)
+    target = kernels.launch_on(frames.device)
     w_ptr = weights.data_ptr() if weights is not None else None
     args = (float(sigma_lo), float(sigma_hi), float(ref_loc), int(bool(winsorize)))
     if plan.variant == "onchip":
         if launches:
             err = lib.nl_stack_clip_onchip(frames.data_ptr(), w_ptr, n, p, *args, plan.wires,
                                            plan.threads, plan.smem_bytes, out.data_ptr(),
-                                           partials.data_ptr(), stream)
+                                           partials.data_ptr(), *target)
             kernels.check(err, "stack_clip")
             kernels.count_launch("stack_clip")
     else:
@@ -211,7 +211,7 @@ def stack_sigma_cuda(frames, ref_loc, sigma_lo, sigma_hi, weights=None, winsoriz
         for s, q, w in launches:
             err = lib.nl_stack_clip(frames.data_ptr() + 4 * s, w_ptr, n, p, q, *args,
                                     scratch.data_ptr(), out.data_ptr() + 4 * s,
-                                    partials.data_ptr() + 8 * w, stream)
+                                    partials.data_ptr() + 8 * w, *target)
             kernels.check(err, "stack_clip")
             kernels.count_launch("stack_clip")
     return (out, *_clip_totals(partials))
@@ -391,13 +391,13 @@ def stack_single_pass_cuda(frames, ref_loc, sigma_lo=0.0, sigma_hi=0.0, mad=Fals
     out = torch.empty(p, dtype=torch.float32, device=frames.device)
     partials, launches = _clip_partials(plan, p, frames.device)
     partials_ptr = partials.data_ptr() if mad else None  # the median counts nothing
-    stream = kernels.stream_handle(frames.device)
+    target = kernels.launch_on(frames.device)
     args = (float(sigma_lo), float(sigma_hi), float(ref_loc), int(bool(mad)))
     if plan.variant == "onchip":
         if launches:
             err = lib.nl_stack_single_pass_onchip(frames.data_ptr(), n, p, *args, plan.wires,
                                                   plan.threads, plan.smem_bytes, out.data_ptr(),
-                                                  partials_ptr, stream)
+                                                  partials_ptr, *target)
             kernels.check(err, "stack_single_pass")
             kernels.count_launch("stack_single_pass")
     else:
@@ -408,7 +408,7 @@ def stack_single_pass_cuda(frames, ref_loc, sigma_lo=0.0, sigma_hi=0.0, mad=Fals
             err = lib.nl_stack_single_pass(
                 frames.data_ptr() + 4 * s, n, p, q, *args, scratch.data_ptr(),
                 out.data_ptr() + 4 * s, None if partials_ptr is None else partials_ptr + 8 * w,
-                stream)
+                *target)
             kernels.check(err, "stack_single_pass")
             kernels.count_launch("stack_single_pass")
     if mad:
@@ -485,13 +485,13 @@ def stack_linfit_cuda(frames, ref_loc, sigma_lo, sigma_hi, _force_scratch=False)
     plan = _linfit_plan(n, p, _force_scratch)
     out = torch.empty(p, dtype=torch.float32, device=frames.device)
     partials, launches = _clip_partials(plan, p, frames.device)
-    stream = kernels.stream_handle(frames.device)
+    target = kernels.launch_on(frames.device)
     args = (float(sigma_lo), float(sigma_hi), float(ref_loc))
     if plan.variant == "onchip":
         if launches:
             err = lib.nl_stack_linfit_onchip(frames.data_ptr(), n, p, *args, plan.wires,
                                              plan.threads, plan.smem_bytes, out.data_ptr(),
-                                             partials.data_ptr(), stream)
+                                             partials.data_ptr(), *target)
             kernels.check(err, "stack_linfit")
             kernels.count_launch("stack_linfit")
     else:
@@ -502,7 +502,7 @@ def stack_linfit_cuda(frames, ref_loc, sigma_lo, sigma_hi, _force_scratch=False)
             err = lib.nl_stack_linfit(frames.data_ptr() + 4 * s, n, p, q, *args,
                                       scratch_v.data_ptr(), scratch_a.data_ptr(),
                                       out.data_ptr() + 4 * s, partials.data_ptr() + 8 * w,
-                                      stream)
+                                      *target)
             kernels.check(err, "stack_linfit")
             kernels.count_launch("stack_linfit")
     return (out, *_clip_totals(partials))

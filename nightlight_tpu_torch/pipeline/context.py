@@ -64,6 +64,21 @@ class Context:
 
     lock: threading.Lock = field(default_factory=threading.Lock)
     _log_buffer: list = field(default_factory=list)
+    _mesh: Any = None
+
+    @property
+    def mesh(self):
+        """Optional parallel.mesh.Mesh (JAX: a jax.sharding.Mesh). When set,
+        OpStack splits the batch cube by rows across it and runs the stack
+        and the goal-seek per shard; frames stay whole on the mesh's lead
+        device, which becomes the context's device."""
+        return self._mesh
+
+    @mesh.setter
+    def mesh(self, mesh) -> None:
+        self._mesh = mesh
+        if mesh is not None:
+            self.device = mesh.lead
 
     def __post_init__(self):
         if self.memory_mb == 0:

@@ -171,7 +171,9 @@ class _RangeWarn:
 @register
 class OpLoad(Operator):
     """Load one FITS/TIFF image (operator.go:210-282).
-    The image lands on the context's device."""
+    The image lands on the context's device, whole, also under a mesh (the
+    JAX package row-shards it here and lets XLA propagate the sharding; the
+    port splits the batch cube at the stack, OpStack._batch_frames)."""
 
     TYPE = "load"
     PARAMS = {"id": ("id", 0), "file_name": ("fileName", "")}

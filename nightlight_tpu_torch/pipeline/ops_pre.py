@@ -244,6 +244,9 @@ class OpStarDetect(UnaryOperator):
         if f.median_diff_stats is not None:
             median_diff_std = f.median_diff_stats.stddev
         data2d = f.data if f.data.dim() == 2 else f.data[0]
+        # a frame is whole on the context's device, also under a mesh, so
+        # detection keeps K4 (the JAX package falls back to the XLA gather
+        # there: a pallas_call cannot address a row-sharded frame)
         f.stars, f.hfr = find_stars(data2d, f.stats.location, f.stats.scale, self.sigma,
                                     self.bad_pixel_sigma, self.in_out_ratio,
                                     int(self.radius), median_diff_std)

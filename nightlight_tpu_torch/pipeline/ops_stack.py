@@ -84,10 +84,14 @@ class OpStack(Operator):
         return [out]
 
     @staticmethod
-    def _batch_frames(fs: list, c: Context) -> torch.Tensor:
+    def _batch_frames(fs: list, c: Context):
         """(N, H, W) batch of the frames with pending warps applied: the
         shift-blend warp over the whole batch when every pending transform
-        allows it and shapes are uniform, else per-frame projection."""
+        allows it and shapes are uniform, else per-frame projection (mixed
+        shapes, a mesh). With c.mesh set the batch is split by rows across
+        it (parallel/mesh.py place_on_mesh), where JAX's shard_map begins:
+        the frames were whole on the lead device through the per-frame
+        operators."""
         from nightlight_tpu_torch.align import transform as tf
         from nightlight_tpu_torch.ops.resample import (
             plan_batch_shift_warp, project, warp_shift_batch)
@@ -95,7 +99,7 @@ class OpStack(Operator):
         pending = [f for f in fs if f.pending_warp_oob is not None]
         shape0 = fs[0].data.shape
         fused = None
-        if pending and all(f.data.dim() == 2 and f.data.shape == shape0
+        if pending and c.mesh is None and all(f.data.dim() == 2 and f.data.shape == shape0
                            and list(f.naxisn) == [shape0[1], shape0[0]] for f in fs):
             invs = [tf.invert(np.asarray(f.trans, np.float32)) if f.pending_warp_oob is not None
                     else tf.invert(tf.identity()) for f in fs]
@@ -118,6 +122,10 @@ class OpStack(Operator):
         frames = torch.stack([f.data for f in fs])
         for f in fs:
             f.data = None
+        if c.mesh is not None:
+            from nightlight_tpu_torch.parallel.mesh import place_on_mesh
+
+            return place_on_mesh(frames, c.mesh)
         return frames
 
     def apply(self, fs: list, c: Context) -> Image:
@@ -134,19 +142,26 @@ class OpStack(Operator):
         for f in fs:
             if f.stats is not None:
                 f.stats.free_data()
+        # c.mesh routes the reduction per shard (stack_sharded, the sharded
+        # goal-seek): each shard's kernel on its rows, the counts summed
         if self.sigma_low < 0 or self.sigma_high < 0:
             from nightlight_tpu_torch.ops.findsigma import find_sigmas_and_stack
 
             data, clip_lo, clip_hi, _, _ = find_sigmas_and_stack(
                 frames, mode, weights=weights, ref_frame_loc=self.ref_frame_loc,
                 clip_perc_low=self.clip_perc_low, clip_perc_high=self.clip_perc_high,
-                log=c.log)
+                log=c.log, mesh=c.mesh)
         else:
             data, clip_lo, clip_hi = stk.stack(frames, mode, weights=weights,
                                                sigma_low=self.sigma_low,
                                                sigma_high=self.sigma_high,
-                                               ref_frame_loc=self.ref_frame_loc)
+                                               ref_frame_loc=self.ref_frame_loc, mesh=c.mesh)
         del frames
+        if c.mesh is not None:
+            from nightlight_tpu_torch.parallel.mesh import gather
+
+            # the operators after the stack take the image whole
+            data = gather(data)
         if mode >= stk.StackMode.Sigma:
             total = len(fs) * fs[0].pixels
             clip_lo, clip_hi = int(clip_lo), int(clip_hi)

@@ -123,7 +123,7 @@ def test_cli_without_a_card_raises(tmp_path, monkeypatch):
     assert tctx.new_context(log=io.StringIO(), device="cpu").device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("script", ["phase_split", "gather_split"])
+@pytest.mark.parametrize("script", ["phase_split", "gather_split", "mesh_cards"])
 def test_measurement_scripts_without_a_card_raise(monkeypatch, script):
     """The measurement scripts time the card and nothing else: without a
     CUDA device they stop before any work."""
@@ -359,3 +359,26 @@ def test_cli_stack_matches_jax(tmp_path, monkeypatch, n, mode, exact_seek, flags
     # pixel whose clip decision flipped moves by a few percent
     assert np.median(rel) <= 1e-5 and np.mean(rel > 1e-4) <= 2e-3 and rel.max() <= 0.1
     assert os.path.exists("port.jpg") and os.path.exists("port.html")
+
+
+def test_shard_on_one_device_runs_unsharded(tmp_path, monkeypatch):
+    """-shard with device="cpu" (one device) prints the JAX CLI's line,
+    read from its source, and runs unsharded: every other log line and the
+    output equal the port's run without -shard."""
+    src = inspect.getsource(jcli.main)
+    m = re.search(r'"(-shard requested[^"]*)"\s*"([^"]*)\\n"', src)
+    line = m.group(1) + m.group(2)
+    assert line == "-shard requested but only one device attached; running unsharded"
+    _fixture(str(tmp_path), 6, 256)
+    monkeypatch.chdir(tmp_path)
+    rc_s, log_s = _run(tcli, "shard.fits", ("-shard",))
+    rc_u, log_u = _run(tcli, "plain.fits")
+    assert rc_s == 0 and rc_u == 0, log_s[-2000:]
+    lines = [ln for ln in log_s.splitlines() if not ln.startswith("Done after")]
+    assert lines.count(line) == 1 and lines[1] == line  # after the estimator line
+    lines.remove(line)
+    assert "\n".join(lines).replace("shard.", "X.") == "\n".join(
+        ln for ln in log_u.splitlines() if not ln.startswith("Done after")).replace(
+        "plain.", "X.")
+    np.testing.assert_array_equal(tfits.read_file("shard.fits").to_numpy(),
+                                  tfits.read_file("plain.fits").to_numpy())

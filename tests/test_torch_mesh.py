@@ -1,0 +1,733 @@
+"""The port's device mesh (nightlight_tpu_torch/parallel/mesh.py), held
+against the JAX package's (nightlight_tpu/parallel/mesh.py), one test for
+each of tests/test_mesh.py's, plus the sharded goal-seek with its subsample
+engaged and the port's own routing checks.
+
+The JAX side runs on the 8-device virtual CPU mesh that tests/conftest.py
+forces, its Pallas kernels in interpret mode where test_mesh.py runs them
+so; the port side on ``make_mesh([cpu] * 8)``: eight shards on the CPU,
+each stack the kernels' plain versions. Inputs are numpy arrays from a
+seed. Clip counts, sigmas, iteration and halo sizes are exact; images are
+bit for bit against the jitted JAX steps (the port's warp rounds its
+multiply-adds as XLA's CPU code contracts them, ops/pixelmath.py fma32),
+and within test_mesh.py's atol 1e-5 against JAX functions called eagerly,
+which round each product apart. Tolerances are stated per test."""
+
+import contextlib
+import io
+import os
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nightlight_tpu.ops import findsigma as jfs
+from nightlight_tpu.ops import stack as jstk
+from nightlight_tpu.parallel import mesh as jm
+from nightlight_tpu_torch.ops import findsigma as tfs
+from nightlight_tpu_torch.ops import stack as tstk
+from nightlight_tpu_torch.parallel import mesh as tm
+
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module")
+def jmesh():
+    return jm.make_mesh()
+
+
+@pytest.fixture(scope="module")
+def mesh():
+    return tm.make_mesh([CPU] * 8)
+
+
+@pytest.fixture
+def interpret():
+    from nightlight_tpu.ops import stack_pallas as sp
+
+    old = sp.INTERPRET
+    sp.INTERPRET = True
+    yield
+    sp.INTERPRET = old
+
+
+def _mk_inputs(rng, n=10, h=64, w=48):
+    frames = rng.normal(100.0, 2.0, size=(n, h, w)).astype(np.float32)
+    frames[3, 10, 10] += 400.0  # outlier to exercise clipping
+    dark = rng.normal(5.0, 0.1, size=(h, w)).astype(np.float32)
+    flat = rng.uniform(0.8, 1.0, size=(h, w)).astype(np.float32)
+    return frames, dark, flat
+
+
+def _jplace(jmesh, frames, dark, flat):
+    """The JAX inputs of a sharded step, as test_mesh.py places them."""
+    n = frames.shape[0]
+    plane = jax.sharding.NamedSharding(jmesh, jax.sharding.PartitionSpec("pix", None))
+    ones = jnp.ones(n, jnp.float32)
+    return (jax.device_put(jnp.asarray(frames), jm.shard_rows(jmesh)),
+            jax.device_put(jnp.asarray(dark), plane), jax.device_put(jnp.asarray(flat), plane),
+            jnp.float32(flat.max()), ones, ones, ones, jnp.float32(1.0), jnp.float32(1.0))
+
+
+def _tplace(mesh, frames, dark, flat):
+    """The port's inputs of a sharded step."""
+    ones = torch.ones(frames.shape[0])
+    return (tm.shard_rows(mesh, torch.from_numpy(frames)),
+            tm.shard_rows(mesh, torch.from_numpy(dark)),
+            tm.shard_rows(mesh, torch.from_numpy(flat)),
+            float(flat.max()), ones, ones, ones, 1.0, 1.0)
+
+
+def _np(x):
+    return tm.gather(x).numpy()
+
+
+def _same(port, jax_out):
+    """Bit for bit, NaNs in the same places."""
+    np.testing.assert_array_equal(_np(port), np.asarray(jax_out))
+
+
+def _band(port, jax_out):
+    """test_mesh.py's band, atol 1e-5, NaNs in the same places: against the
+    Pallas kernels in interpret mode, whose weighted and winsorized sums
+    round some products apart from XLA's fused programs (one float32 step
+    of ~100 on a few pixels; tests/test_torch_stack.py's K1 band)."""
+    a, b = _np(port), np.asarray(jax_out)
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+    np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+
+
+def _counts(out):
+    return int(out[1]), int(out[2])
+
+
+class TestShardedStack:
+    def test_mesh_uses_all_devices(self, mesh, jmesh, monkeypatch):
+        assert mesh.size == jmesh.devices.size == len(jax.devices()) == 8
+        assert mesh.lead == CPU and all(d == CPU for d in mesh.devices)
+        # the default mesh is every card; without one it raises
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tm.make_mesh()
+
+    def test_sharded_matches_single_device(self, mesh, jmesh, rng):
+        """Port sharded = JAX sharded = port unsharded, bit for bit; the
+        match is x*1+0 here, so the eager JAX step rounds alike too."""
+        frames, dark, flat = _mk_inputs(rng)
+        got = tm.run_sharded_stack(frames, dark, flat, mesh=mesh)
+        want = jm.run_sharded_stack(frames, dark, flat, mesh=jmesh)
+        _same(got[0], want[0])
+        assert _counts(got) == _counts(want)
+
+        ones = torch.ones(frames.shape[0])
+        ref = tm._pipeline_step(torch.from_numpy(frames), torch.from_numpy(dark),
+                                torch.from_numpy(flat), float(flat.max()), ones, ones, ones,
+                                1.0, 1.0, 2.75, 2.75, mode=int(tstk.StackMode.Sigma))
+        np.testing.assert_array_equal(_np(got[0]), ref[0].numpy())
+        assert _counts(got) == _counts(ref)
+        assert _counts(got)[1] >= 1  # the planted outlier was clipped
+
+        jones = jnp.ones(frames.shape[0], jnp.float32)
+        jref = jm._pipeline_step(
+            jnp.asarray(frames), jnp.asarray(dark), jnp.asarray(flat), jnp.float32(flat.max()),
+            jones, jones, jones, jnp.float32(1.0), jnp.float32(1.0), jnp.float32(2.75),
+            jnp.float32(2.75), mode=int(jstk.StackMode.Sigma))
+        np.testing.assert_allclose(ref[0].numpy(), np.asarray(jref[0]), rtol=0, atol=1e-5)
+        assert _counts(ref) == _counts(jref)
+
+    def test_output_is_row_sharded(self, mesh, rng):
+        frames, dark, flat = _mk_inputs(rng, n=8)
+        stacked, _, _ = tm.run_sharded_stack(frames, dark, flat, mesh=mesh)
+        # one block per shard, each rows/8 on its device
+        assert isinstance(stacked, tm.RowSharded) and not stacked.replicated
+        assert len(stacked.blocks) == 8
+        assert all(b.shape == (frames.shape[1] // 8, frames.shape[2]) for b in stacked.blocks)
+        assert tuple(stacked.shape) == frames.shape[1:]
+
+    def test_input_row_sharding_spec(self, mesh, jmesh):
+        s = tm.shard_rows(mesh, torch.zeros(3, 16, 4))
+        assert s.spec == tuple(jm.shard_rows(jmesh).spec) == (None, "pix", None)
+        assert [tuple(b.shape) for b in s.blocks] == [(3, 2, 4)] * 8
+        with pytest.raises(ValueError, match="divides"):
+            tm.shard_rows(mesh, torch.zeros(3, 12, 4))
+
+    @pytest.mark.parametrize("mode", [jstk.StackMode.Median, jstk.StackMode.Mean,
+                                      jstk.StackMode.WinsorSigma, jstk.StackMode.LinearFit])
+    def test_all_stack_modes_compile_sharded(self, mesh, jmesh, rng, mode):
+        """Every mode through the sharded step: finite, and bit for bit the
+        JAX sharded step (its XLA stack) with equal clip counts."""
+        frames, dark, flat = _mk_inputs(rng, n=6, h=32, w=32)
+        want = jm.sharded_pipeline_step(jmesh, int(mode))(
+            *_jplace(jmesh, frames, dark, flat), jnp.float32(2.75), jnp.float32(2.75))
+        got = tm.sharded_pipeline_step(mesh, int(mode))(
+            *_tplace(mesh, frames, dark, flat), 2.75, 2.75)
+        assert np.isfinite(_np(got[0])).all(), mode
+        _same(got[0], want[0])
+        assert _counts(got) == _counts(want)
+
+
+class TestShardedKernels:
+    """stack_sharded runs each shard's stack on its local rows (JAX: the
+    Pallas kernels shard_map'ed, in interpret mode here). The reduction is
+    per pixel, so sharding changes no bit against the unsharded stack;
+    against the Pallas kernels the port's plain versions hold _band's atol
+    1e-5 with equal clip counts, against JAX's XLA stack bit for bit."""
+
+    def test_sharded_kernel_matches_unsharded(self, mesh, jmesh, rng, interpret):
+        frames, _, _ = _mk_inputs(rng, n=10, h=64, w=128)
+        frames[2, 5, 7] = np.nan  # missing-data lane
+        got = tstk.stack_sharded(torch.from_numpy(frames), mesh, tstk.StackMode.Sigma,
+                                 sigma_low=2.0, sigma_high=2.0)
+        unsharded = tstk.stack(torch.from_numpy(frames), tstk.StackMode.Sigma,
+                               sigma_low=2.0, sigma_high=2.0)
+        np.testing.assert_array_equal(_np(got[0]), unsharded[0].numpy())
+        assert _counts(got) == _counts(unsharded) and _counts(got)[1] >= 1
+        want = jstk.stack_sharded(jax.device_put(jnp.asarray(frames), jm.shard_rows(jmesh)),
+                                  jmesh, jstk.StackMode.Sigma, sigma_low=2.0, sigma_high=2.0,
+                                  use_pallas=True)
+        _band(got[0], want[0])
+        assert _counts(got) == _counts(want)
+
+    def test_sharded_kernel_weighted_winsor(self, mesh, jmesh, rng, interpret):
+        frames, _, _ = _mk_inputs(rng, n=8, h=32, w=128)
+        w = np.linspace(0.5, 1.5, 8).astype(np.float32)
+        got = tstk.stack_sharded(torch.from_numpy(frames), mesh, tstk.StackMode.WinsorSigma,
+                                 weights=torch.from_numpy(w), sigma_low=2.0, sigma_high=2.0)
+        unsharded = tstk.stack(torch.from_numpy(frames), tstk.StackMode.WinsorSigma,
+                               weights=torch.from_numpy(w), sigma_low=2.0, sigma_high=2.0)
+        np.testing.assert_array_equal(_np(got[0]), unsharded[0].numpy())
+        assert _counts(got) == _counts(unsharded)
+        twins = [jstk.stack_sharded(jax.device_put(jnp.asarray(frames), jm.shard_rows(jmesh)),
+                                    jmesh, jstk.StackMode.WinsorSigma, weights=jnp.asarray(w),
+                                    sigma_low=2.0, sigma_high=2.0, use_pallas=pallas)
+                 for pallas in (False, True)]
+        # the JAX package's XLA twin: bit for bit, equal counts
+        _same(got[0], twins[0][0])
+        assert _counts(got) == _counts(twins[0])
+        # its Pallas kernel rounds the weighted sums apart and flips one
+        # borderline sample on each side against its own XLA twin here
+        _band(got[0], twins[1][0])
+        assert all(abs(x - y) <= 1 for x, y in zip(_counts(twins[1]), _counts(twins[0])))
+
+    @pytest.mark.parametrize("mode", list(range(1, 7)))
+    def test_stack_sharded_every_mode(self, mesh, jmesh, rng, mode):
+        """Modes 1-6 (6: auto, resolved before the split), weighted where
+        the mode has weights: the port's sharded stack against JAX's (its
+        XLA stack per shard), bit for bit with equal clip counts (the mean:
+        within rtol 1e-6)."""
+        frames, _, _ = _mk_inputs(rng, n=10, h=32, w=24)
+        frames[1, 3, 4] = np.nan
+        w = np.linspace(0.5, 1.5, 10).astype(np.float32) if mode in (1, 2, 3) else None
+        got = tstk.stack_sharded(torch.from_numpy(frames), mesh, tstk.StackMode(mode),
+                                 weights=None if w is None else torch.from_numpy(w),
+                                 sigma_low=2.0, sigma_high=2.0, ref_frame_loc=7.0)
+        want = jstk.stack_sharded(jax.device_put(jnp.asarray(frames), jm.shard_rows(jmesh)),
+                                  jmesh, jstk.StackMode(mode),
+                                  weights=None if w is None else jnp.asarray(w),
+                                  sigma_low=2.0, sigma_high=2.0, ref_frame_loc=7.0)
+        if mode == 1:
+            # the weighted mean's frame sums reduce in XLA's order:
+            # tests/test_torch_stack.py's mean band, rtol 1e-6
+            np.testing.assert_allclose(_np(got[0]), np.asarray(want[0]), rtol=1e-6)
+        else:
+            _same(got[0], want[0])
+        assert _counts(got) == _counts(want)
+
+    def test_stack_mesh_param_routes_sharded(self, mesh, jmesh, rng, interpret):
+        frames, _, _ = _mk_inputs(rng, n=6, h=32, w=64)
+        out, lo, hi = tstk.stack(tm.shard_rows(mesh, torch.from_numpy(frames)),
+                                 tstk.StackMode.Sigma, mesh=mesh)
+        # the result is row-sharded: it came back through stack_sharded
+        assert isinstance(out, tm.RowSharded) and len(out.blocks) == 8
+        u_out, u_lo, u_hi = tstk.stack(torch.from_numpy(frames), tstk.StackMode.Sigma)
+        np.testing.assert_array_equal(_np(out), u_out.numpy())
+        assert (int(lo), int(hi)) == (int(u_lo), int(u_hi))
+        j_out, j_lo, j_hi = jstk.stack(
+            jax.device_put(jnp.asarray(frames), jm.shard_rows(jmesh)), jstk.StackMode.Sigma,
+            mesh=jmesh, use_pallas=True)
+        _band(out, j_out)
+        assert (int(lo), int(hi)) == (int(j_lo), int(j_hi))
+        # rows that do not divide the mesh stay unsharded, as in JAX
+        odd = tstk.stack(torch.from_numpy(frames[:, :30]), tstk.StackMode.Sigma, mesh=mesh)
+        assert isinstance(odd[0], torch.Tensor)
+
+    def test_sharded_goal_seek_matches(self, mesh, jmesh, rng, interpret):
+        frames, _, _ = _mk_inputs(rng, n=10, h=32, w=128)
+        log_s, log_u = io.StringIO(), io.StringIO()
+        g_s = tfs.find_sigmas_and_stack(tm.shard_rows(mesh, torch.from_numpy(frames)),
+                                        tstk.StackMode.Sigma, mesh=mesh, log=log_s)
+        g_u = tfs.find_sigmas_and_stack(torch.from_numpy(frames), tstk.StackMode.Sigma,
+                                        log=log_u)
+        np.testing.assert_array_equal(_np(g_s[0]), g_u[0].numpy())
+        assert g_s[1:] == g_u[1:] and log_s.getvalue() == log_u.getvalue()
+        g_j = jfs.find_sigmas_and_stack(
+            jax.device_put(jnp.asarray(frames), jm.shard_rows(jmesh)), jstk.StackMode.Sigma,
+            mesh=jmesh, use_pallas=True)
+        _band(g_s[0], g_j[0])
+        assert g_s[1:3] == (int(g_j[1]), int(g_j[2])) and g_s[3:] == (g_j[3], g_j[4])
+
+    def test_sharded_goal_seek_linfit_newton(self, mesh, jmesh, rng, interpret):
+        frames, _, _ = _mk_inputs(rng, n=8, h=16, w=128)
+        g_s = tfs.find_sigmas_and_stack(tm.shard_rows(mesh, torch.from_numpy(frames)),
+                                        tstk.StackMode.LinearFit, mesh=mesh)
+        g_u = tfs.find_sigmas_and_stack(torch.from_numpy(frames), tstk.StackMode.LinearFit)
+        np.testing.assert_array_equal(_np(g_s[0]), g_u[0].numpy())
+        assert g_s[1:] == g_u[1:]
+        g_j = jfs.find_sigmas_and_stack(
+            jax.device_put(jnp.asarray(frames), jm.shard_rows(jmesh)),
+            jstk.StackMode.LinearFit, mesh=jmesh, use_pallas=True)
+        _band(g_s[0], g_j[0])
+        assert g_s[1:3] == (int(g_j[1]), int(g_j[2])) and g_s[3:] == (g_j[3], g_j[4])
+
+    @pytest.mark.parametrize("mode", [jstk.StackMode.Sigma, jstk.StackMode.LinearFit])
+    def test_sharded_goal_seek_subsampled(self, mesh, jmesh, rng, monkeypatch, mode):
+        """The search subsample engaged (its gate lowered in both packages,
+        a patch of the test only): each shard subsamples its own flattened
+        4 x 100 block with stride 17 (400 % 17 = 9, so the pattern is not the
+        global one), the sample total the global total as float32 times the
+        local ratio. Sigmas, clip counts and the image equal JAX's sharded
+        search (its XLA stack) exactly, and the sharded subsample counts
+        other samples than the unsharded one."""
+        monkeypatch.setattr(jfs, "_SEARCH_SUBSAMPLE_MIN", 64)
+        monkeypatch.setattr(tfs, "_SEARCH_SUBSAMPLE_MIN", 64)
+        frames, _, _ = _mk_inputs(rng, n=26, h=32, w=100)
+        frames[5, 3:9, 40:60] += 30.0  # a bright patch: clips that vary by shard
+        log_s = io.StringIO()
+        g_s = tfs.find_sigmas_and_stack(tm.shard_rows(mesh, torch.from_numpy(frames)), mode,
+                                        mesh=mesh, log=log_s)
+        g_j = jfs.find_sigmas_and_stack(
+            jax.device_put(jnp.asarray(frames), jm.shard_rows(jmesh)), mode, mesh=jmesh,
+            use_pallas=False)
+        _same(g_s[0], g_j[0])
+        assert g_s[1:3] == (int(g_j[1]), int(g_j[2])) and g_s[3:] == (g_j[3], g_j[4])
+        assert "Step 1:" in log_s.getvalue()
+        # what the sharded search evaluated: each shard's own stride-17
+        # sample (24 of its 400 pixels), the counts summed; the unsharded
+        # search samples other pixels and counts otherwise
+        clips_at, sub_total = tfs._evaluator(torch.from_numpy(frames), mode, None, 0.0, True,
+                                             mesh)
+        jsub, jtotal = jfs._search_subsample(jnp.asarray(frames[:, :4]),
+                                             jnp.float32(frames.size))
+        assert jsub.shape == (26, 24) and sub_total == np.float32(jtotal)
+        per_shard = [tstk.stack(torch.from_numpy(frames[:, 4 * k:4 * k + 4]).reshape(26, -1)
+                                [:, ::17].contiguous(), mode, sigma_low=2.0, sigma_high=2.0)
+                     for k in range(8)]
+        assert clips_at(2.0, 2.0) == tuple(sum(int(o[i]) for o in per_shard) for i in (1, 2))
+        unsharded_at, _ = tfs._evaluator(torch.from_numpy(frames), mode, None, 0.0, True, None)
+        assert unsharded_at(2.0, 2.0) != clips_at(2.0, 2.0)
+
+
+class TestShardedFullStep:
+    """calibrate+match+WARP+stack: the warp's sources cross row shards, so
+    each shard warps its rows from the all-gathered frames."""
+
+    def _invs(self, n):
+        # per-frame pure translations: frame i shifted by (i, -i); the
+        # inverse transform maps dest->src coordinates
+        return np.array([[1.0, 0.0, float(i), 0.0, 1.0, float(-i)] for i in range(n)],
+                        np.float32)
+
+    def test_full_step_matches_single_device(self, mesh, jmesh, rng):
+        frames, dark, flat = _mk_inputs(rng, n=6, h=64, w=48)
+        invs = self._invs(6)
+        invs[:, 2] += 0.37  # fractional: the bilinear blend rounds
+        got = tm.run_sharded_full_stack(frames, dark, flat, invs, mesh=mesh)
+        want = jm.run_sharded_full_stack(frames, dark, flat, invs, mesh=jmesh)
+        _same(got[0], want[0])
+        assert _counts(got) == _counts(want)
+
+        ones = torch.ones(6)
+        ref = tm._full_pipeline_step(
+            torch.from_numpy(frames), torch.from_numpy(dark), torch.from_numpy(flat),
+            float(flat.max()), ones, ones, ones, 1.0, 1.0, invs, 2.75, 2.75,
+            mode=int(tstk.StackMode.Sigma))
+        np.testing.assert_array_equal(_np(got[0]), ref[0].numpy())
+        assert _counts(got) == _counts(ref)
+        # the eager JAX step, on test_mesh.py's whole-pixel shifts (its
+        # blend rounds each product apart, which a fractional shift shows):
+        # the atol of test_mesh.py; edge rows/cols are NaN where every warp
+        # fell out of bounds
+        invs = self._invs(6)
+        ref = tm._full_pipeline_step(
+            torch.from_numpy(frames), torch.from_numpy(dark), torch.from_numpy(flat),
+            float(flat.max()), ones, ones, ones, 1.0, 1.0, invs, 2.75, 2.75,
+            mode=int(tstk.StackMode.Sigma))
+        jones = jnp.ones(6, jnp.float32)
+        jref = jm._full_pipeline_step(
+            jnp.asarray(frames), jnp.asarray(dark), jnp.asarray(flat), jnp.float32(flat.max()),
+            jones, jones, jones, jnp.float32(1.0), jnp.float32(1.0), jnp.asarray(invs),
+            jnp.float32(2.75), jnp.float32(2.75), mode=int(jstk.StackMode.Sigma))
+        assert _counts(ref) == _counts(jref)
+        out, expect = ref[0].numpy(), np.asarray(jref[0])
+        np.testing.assert_array_equal(np.isnan(out), np.isnan(expect))
+        m = ~np.isnan(expect)
+        np.testing.assert_allclose(out[m], expect[m], rtol=0, atol=1e-5)
+
+    def test_identity_warp_equals_plain_step(self, mesh, jmesh, rng):
+        frames, dark, flat = _mk_inputs(rng, n=8)
+        invs = np.tile(np.array([1, 0, 0, 0, 1, 0], np.float32), (8, 1))
+        full = tm.run_sharded_full_stack(frames, dark, flat, invs, mesh=mesh)
+        plain = tm.run_sharded_stack(frames, dark, flat, mesh=mesh)
+        # bilinear sampling needs the x+1/y+1 neighbour, so the last row and
+        # column are out of bounds even under an identity transform; the
+        # interior is bit for bit (weights 1 and 0)
+        np.testing.assert_array_equal(_np(full[0])[:-1, :-1], _np(plain[0])[:-1, :-1])
+        _same(full[0], jm.run_sharded_full_stack(frames, dark, flat, invs, mesh=jmesh)[0])
+
+
+class TestHaloWarp:
+    """Halo-exchange warp: each shard receives its neighbours' boundary rows
+    (the ppermute) instead of the whole frames."""
+
+    def _run(self, mesh, jmesh, frames, dark, flat, invs, halo=8):
+        got = tm.sharded_full_pipeline_step_halo(mesh, halo=halo)(
+            *_tplace(mesh, frames, dark, flat), invs, 2.75, 2.75)
+        want = jm.sharded_full_pipeline_step_halo(jmesh, halo=halo)(
+            *_jplace(jmesh, frames, dark, flat), jnp.asarray(invs), jnp.float32(2.75),
+            jnp.float32(2.75))
+        _same(got[0], want[0])
+        assert _counts(got) == _counts(want)
+        return got
+
+    def test_matches_gather_warp_within_halo(self, mesh, jmesh, rng):
+        frames, dark, flat = _mk_inputs(rng, n=6, h=64, w=48)
+        # translations up to 5 rows, fractional: within the 8-row halo
+        invs = np.array([[1.0, 0.0, 0.3 * i, 0.0, 1.0, -0.9 * i] for i in range(6)],
+                        np.float32)
+        got = self._run(mesh, jmesh, frames, dark, flat, invs, halo=8)
+        gathered = tm.sharded_full_pipeline_step(mesh)(
+            *_tplace(mesh, frames, dark, flat), invs, 2.75, 2.75)
+        np.testing.assert_array_equal(_np(got[0]), _np(gathered[0]))
+        assert _counts(got) == _counts(gathered)
+
+    def test_beyond_halo_becomes_nan(self, mesh, jmesh, rng):
+        """A displacement larger than the halo cannot be resolved locally:
+        those pixels become NaN missing data rather than wrong values."""
+        frames, dark, flat = _mk_inputs(rng, n=4, h=64, w=48)
+        # every frame shifted by 20 rows with a 4-row halo (8 rows a shard):
+        # every pixel of every frame is missing, and the stacker fills each
+        # with RefFrameLoc (=1.0, stack.go:288-297)
+        invs = np.tile(np.array([1, 0, 0, 0, 1, 20.0], np.float32), (4, 1))
+        got = self._run(mesh, jmesh, frames, dark, flat, invs, halo=4)
+        assert np.all(_np(got[0]) == 1.0)
+
+
+class TestHaloAutoDispatch:
+    """The dispatcher sizes the halo from the batch's transforms or takes
+    the gather warp, with the JAX package's log lines verbatim."""
+
+    def test_required_halo_exact_for_translation(self, rng):
+        invs = np.array([[1, 0, 0, 0, 1, 12.3], [1, 0, 0, 0, 1, -3.0]], np.float32)
+        assert tm.required_halo(invs, 64, 48) == jm.required_halo(invs, 64, 48) == 14
+        rot = np.array([[1.0, -0.01, 3.5, 0.01, 1.0, -7.25]], np.float32)
+        assert tm.required_halo(rot, 200, 300) == jm.required_halo(rot, 200, 300)
+
+    def _logs(self, mesh, jmesh, invs, **kw):
+        logs = []
+        for mod, m in ((tm, mesh), (jm, jmesh)):
+            log = io.StringIO()
+            step = mod.sharded_full_pipeline_step_auto(m, invs, log=log, **kw)
+            logs.append((log.getvalue(), step))
+        assert logs[0][0] == logs[1][0]
+        return logs[0]
+
+    def test_small_shift_picks_halo_step(self, mesh, jmesh):
+        invs = np.array([[1, 0, 0, 0, 1, 2.0]], np.float32)
+        log, _ = self._logs(mesh, jmesh, invs, dest_h=64, dest_w=48)
+        assert log == "Halo warp: exchanging 8 boundary rows (batch needs 4)\n"
+
+    def test_large_shift_falls_back_to_gather(self, mesh, jmesh, rng):
+        frames, dark, flat = _mk_inputs(rng, n=6, h=64, w=48)
+        invs = np.array([[1.0, 0.0, 0.0, 0.0, 1.0, 40.0]] * 6, np.float32)
+        log, step = self._logs(mesh, jmesh, invs, dest_h=64, dest_w=48, halo_cap=16)
+        assert "gather-warp step" in log
+        got = step(*_tplace(mesh, frames, dark, flat), invs, 2.75, 2.75)
+        gathered = tm.sharded_full_pipeline_step(mesh)(
+            *_tplace(mesh, frames, dark, flat), invs, 2.75, 2.75)
+        np.testing.assert_array_equal(_np(got[0]), _np(gathered[0]))
+        want = jm.sharded_full_pipeline_step(jmesh)(
+            *_jplace(jmesh, frames, dark, flat), jnp.asarray(invs), jnp.float32(2.75),
+            jnp.float32(2.75))
+        _same(got[0], want[0])
+        # a 40 px shift keeps most rows valid through the gather; the halo
+        # step at halo <= 16 would have NaN'ed everything below row 40
+        assert np.isfinite(_np(got[0])[45:, :40]).all()
+
+    def test_halo_clamped_to_shard_height(self, mesh, jmesh):
+        # 64 rows / 8 shards = 8 rows a shard; a 10 px shift needs halo 12,
+        # which no exchange reaches -> the gather step
+        invs = np.array([[1, 0, 0, 0, 1, 10.0]], np.float32)
+        log, _ = self._logs(mesh, jmesh, invs, dest_h=64, dest_w=48, halo_cap=128)
+        assert "exceeds shard height" in log
+
+
+class TestShardedDetectAndStretch:
+    """Detection and the auto-stretch of a row-sharded image: the port
+    gathers the rows onto the lead device and runs its unsharded functions
+    (K4 in the detector on a card)."""
+
+    def test_sharded_star_detect_matches(self, mesh, jmesh, rng):
+        from tests.test_stars import synth_field
+
+        stars = [(40.0, 50.0), (120.0, 80.0), (200.0, 200.0), (60.0, 180.0),
+                 (150.0, 30.0), (230.0, 120.0)]
+        img = synth_field(rng, h=256, w=256, stars=stars, bg=100.0, noise=2.0,
+                          flux=8000.0, fwhm=8.0)
+        sharded = tm.place_on_mesh(torch.from_numpy(img), mesh)
+        assert not sharded.replicated
+        args = (100.0, 2.0, 10.0, 0.0, 1.4, 1.0)
+        got, hfr = tm.sharded_star_detect(mesh, radius=16, max_candidates=128)(sharded, *args)
+        jargs = tuple(jnp.float32(a) for a in args)
+        want = jm.sharded_star_detect(jmesh, radius=16, max_candidates=128)(
+            jm.place_on_mesh(jnp.asarray(img), jmesh), *jargs)
+        # counts exactly; positions to 1e-3 px, masses and HFRs to 1e-4
+        # relative: the centre-of-mass sums run in another float32 order
+        # (tests/test_torch_stars.py)
+        assert got.count == int(want[5]) == len(stars)
+        n = len(stars)
+        np.testing.assert_allclose(got.x, np.asarray(want[0])[:n], atol=1e-3)
+        np.testing.assert_allclose(got.y, np.asarray(want[1])[:n], atol=1e-3)
+        np.testing.assert_allclose(got.mass, np.asarray(want[3])[:n], rtol=1e-4)
+        np.testing.assert_allclose(got.hfr, np.asarray(want[4])[:n], rtol=1e-4)
+        assert hfr == pytest.approx(float(want[6]), rel=1e-4)
+
+    def test_sharded_auto_stretch_matches(self, mesh, jmesh, rng):
+        img = rng.normal(0.1, 0.01, size=(64, 64)).astype(np.float32).clip(0, 1)
+        s_out, _, s_n, _ = tm.sharded_auto_stretch(mesh, max_iter=8)(
+            tm.place_on_mesh(torch.from_numpy(img), mesh), 0.25, 0.05)
+        j_out, _, j_n, _ = jm.sharded_auto_stretch(jmesh, max_iter=8)(
+            jm.place_on_mesh(jnp.asarray(img), jmesh), jnp.float32(0.25), jnp.float32(0.05))
+        assert s_n == int(j_n)
+        # test_mesh.py's band: the rounds' statistics reduce in another order
+        np.testing.assert_allclose(_np(s_out), np.asarray(j_out), rtol=1e-5, atol=1e-6)
+        assert len(s_out.blocks) == 8
+
+    def test_place_on_mesh_replicates_indivisible_rows(self, mesh, jmesh):
+        odd = tm.place_on_mesh(torch.zeros(63, 16), mesh)
+        assert odd.replicated and odd.spec == ()
+        assert jm.place_on_mesh(jnp.zeros((63, 16)), jmesh).sharding.is_fully_replicated
+        even = tm.place_on_mesh(torch.zeros(3, 64, 16), mesh)  # (C, H, W)
+        assert not even.replicated and even.spec == (None, "pix", None)
+        assert not jm.place_on_mesh(jnp.zeros((3, 64, 16)), jmesh).sharding.is_fully_replicated
+
+
+_JOB_STEPS = [
+    {"type": "loadMany", "filePatterns": ["light*.fits"]},
+    {"type": "badPixel", "sigmaLow": 3.0, "sigmaHigh": 5.0},
+    {"type": "starDetect", "radius": 16, "sigma": 10.0,
+     "badPixelSigma": 5.0, "inOutRatio": 1.4},
+    {"type": "selectRef", "target": 1, "mode": "%starsHFR"},
+    {"type": "selectRef", "target": 0, "mode": "%starsHFR"},
+    {"type": "matchHist", "mode": 2},
+    {"type": "align", "k": 20, "threshold": 1.0, "oobMode": 0},
+]
+
+
+def _run_job(tmp_path, out, mesh, jax_side=False, stack=None):
+    """test_mesh.py's context job (load -> bad pixel -> detect -> select ref
+    -> match -> align -> stack mode 2 at sigma 2.75 -> save) through either
+    package, with c.mesh set or not. Returns the log."""
+    stack = stack or {"type": "stack", "mode": 2, "sigmaLow": 2.75, "sigmaHigh": 2.75}
+    job = {"type": "seq", "steps": [*_JOB_STEPS, stack,
+                                     {"type": "save", "filePattern": str(tmp_path / out)}]}
+    log = io.StringIO()
+    if jax_side:
+        from nightlight_tpu.pipeline import materialize_all, op_from_dict
+        from nightlight_tpu.pipeline.context import new_context
+
+        # serialize device work, as test_mesh.py does for its 8-way programs
+        os.environ["NIGHTLIGHT_SYNC_FLUSH"] = "1"
+        c = new_context(log=log)
+    else:
+        from nightlight_tpu_torch.pipeline import materialize_all, op_from_dict
+        from nightlight_tpu_torch.pipeline.context import new_context
+
+        c = new_context(log=log, device="cpu")
+    c.mesh = mesh
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        promises = op_from_dict(job).make_promises([], c)
+        if jax_side:
+            _, err = materialize_all(promises, c.max_threads, True)
+        else:
+            _, err = materialize_all(promises, forget=True)
+        if err is not None:
+            raise err
+        c.finalize()
+    finally:
+        os.chdir(cwd)
+        os.environ.pop("NIGHTLIGHT_SYNC_FLUSH", None)
+    return log.getvalue()
+
+
+def _frame_lines_sorted(log):
+    """Log lines without the per-frame order of the JAX thread pool."""
+    return sorted(ln for ln in log.splitlines() if ln.strip())
+
+
+class TestMeshContextPipeline:
+    """Context.mesh: frames stay whole on the lead device through the
+    per-frame operators, and the stack splits the batch by rows. The
+    sharded job equals the unsharded one."""
+
+    def test_full_job_sharded_matches_unsharded(self, mesh, jmesh, rng, tmp_path):
+        from nightlight_tpu_torch.io import fits as tfits
+        from tests.test_pipeline_e2e import write_frames
+
+        write_frames(tmp_path, rng, n_frames=4)
+        log_s = _run_job(tmp_path, "sharded.fits", mesh)
+        log_u = _run_job(tmp_path, "unsharded.fits", None)
+        _run_job(tmp_path, "jax_sharded.fits", jmesh, jax_side=True)
+        assert "Stacking 4 frames" in log_s
+        # the same log: clip counts, statistics, every line
+        assert log_s.replace("sharded.fits", "X") == log_u.replace("unsharded.fits", "X")
+
+        a, b, j = (tfits.read_file(str(tmp_path / name)).to_numpy()
+                   for name in ("sharded.fits", "unsharded.fits", "jax_sharded.fits"))
+        # sharded and unsharded port runs warp alike (the shift-blend warp
+        # of each frame, on the batch or frame by frame): bit for bit
+        np.testing.assert_array_equal(a, b)
+        # against the JAX package: test_mesh.py's band (transforms from
+        # centroids that differ at ~1e-5 px, tests/test_torch_cli.py)
+        m = ~(np.isnan(a) | np.isnan(j))
+        assert m.mean() > 0.9
+        np.testing.assert_allclose(a[m], j[m], rtol=1e-4, atol=1e-3)
+
+    def test_star_detect_keeps_the_kernel_path_under_mesh(self, mesh, rng, tmp_path,
+                                                          monkeypatch):
+        """JAX forces the XLA gather under a mesh (a pallas_call cannot
+        address global rows of a sharded frame). The port's frame is whole
+        on the lead device, so detection gathers through K4's wrapper
+        (gather_cuda.gather_patches: the kernel on a card) with the full
+        frame, mesh or not."""
+        from nightlight_tpu_torch.detect import stars as tstars
+        from nightlight_tpu_torch.pipeline import ops_pre
+        from nightlight_tpu_torch.pipeline.context import new_context
+        from nightlight_tpu_torch.pipeline.operators import OpLoad
+        from tests.test_pipeline_e2e import write_frames
+
+        names = write_frames(tmp_path, rng, n_frames=1)
+        c = new_context(log=io.StringIO(), device="cpu")
+        c.mesh = mesh
+        f = OpLoad(id=0, file_name=names[0]).apply(None, c)
+        seen = []
+        real = tstars.gather_patches
+
+        def spy(img, *args):
+            seen.append(tuple(img.shape))
+            return real(img, *args)
+
+        monkeypatch.setattr(tstars, "gather_patches", spy)
+        ops_pre.OpStarDetect(radius=16, sigma=10.0, bad_pixel_sigma=5.0,
+                             in_out_ratio=1.4).apply(f, c)
+        assert seen == [(256, 256)] and f.stars.count > 0
+
+    def test_loaded_frame_is_whole_and_the_batch_row_sharded(self, mesh, rng, tmp_path):
+        """JAX row-shards each frame at load; the port keeps the frame whole
+        on the mesh's lead device and splits the batch cube by rows where
+        JAX's shard_map begins (OpStack._batch_frames)."""
+        from nightlight_tpu_torch.pipeline.context import new_context
+        from nightlight_tpu_torch.pipeline.operators import OpLoad
+        from nightlight_tpu_torch.pipeline.ops_stack import OpStack
+        from tests.test_pipeline_e2e import write_frames
+
+        names = write_frames(tmp_path, rng, n_frames=2)
+        c = new_context(log=io.StringIO(), device="cpu")
+        c.mesh = mesh
+        assert c.device == mesh.lead
+        fs = [OpLoad(id=i, file_name=n).apply(None, c) for i, n in enumerate(names)]
+        assert all(isinstance(f.data, torch.Tensor) and f.data.shape == (256, 256) for f in fs)
+        batch = OpStack._batch_frames(fs, c)
+        assert isinstance(batch, tm.RowSharded) and len(batch.blocks) == 8
+        assert all(b.shape == (2, 32, 256) for b in batch.blocks)
+
+
+# ---------------------------------------------------------------------------
+# The port's own routing checks
+# ---------------------------------------------------------------------------
+
+
+def test_fused_executor_off_under_mesh(mesh, jmesh, rng, tmp_path, monkeypatch):
+    """Under a mesh a stackBatches job built by the `stack` preset takes the
+    per-frame operator path with the JAX package's line, and stacks per
+    shard with the goal-seek."""
+    from nightlight_tpu.models import fastpath as jfast
+    from nightlight_tpu_torch import cli as tcli
+    from nightlight_tpu_torch.models import fastpath as tfast
+    from nightlight_tpu_torch.pipeline.context import new_context
+    from tests.test_pipeline_e2e import write_frames
+
+    class C:
+        pass
+
+    for mod, m in ((tfast, mesh), (jfast, jmesh)):
+        c = C()
+        c.mesh = m
+        assert mod.fused_batch_eligible([], c) == (False, "sharded run (mesh active)")
+
+    write_frames(tmp_path, rng, n_frames=6)
+    monkeypatch.chdir(tmp_path)
+    args = tcli.build_parser().parse_args(["-out", "s.fits", "-jpg", "", "stack",
+                                           "light*.fits"])
+    tcli.apply_command_defaults(args)
+    log = io.StringIO()
+    c = new_context(log=log, device="cpu")
+    c.mesh = mesh
+    with contextlib.redirect_stdout(io.StringIO()):
+        tcli.run_op(tcli.build_command_seq(args), c)
+    text = log.getvalue()
+    assert ("Fused batch executor off (sharded run (mesh active)); using the per-frame "
+            "operator path.\n") in text
+    assert "Stacking 6 frames with stacking mode 2 " in text
+    assert re.search(r"Reached 0\.50% and 0\.50% clipping", text)
+
+
+@pytest.mark.parametrize("mode,sigmas", [(2, (2.75, 2.75)), (5, (-1.0, -1.0))])
+def test_context_job_sharded_equals_unsharded(mesh, rng, tmp_path, mode, sigmas):
+    """The sharded context job against the unsharded one on the port alone:
+    equal log lines (clip counts, goal-seek steps) and the image bit for
+    bit: both runs warp each frame with the same shift-blend arithmetic,
+    and the stack is per pixel. Mode 5 runs the sharded Newton goal-seek."""
+    from nightlight_tpu_torch.io import fits as tfits
+    from tests.test_pipeline_e2e import write_frames
+
+    write_frames(tmp_path, rng, n_frames=6, h=128, w=96)
+    stack = {"type": "stack", "mode": mode, "sigmaLow": sigmas[0], "sigmaHigh": sigmas[1]}
+    log_s = _run_job(tmp_path, "a.fits", mesh, stack=stack)
+    log_u = _run_job(tmp_path, "b.fits", None, stack=stack)
+    assert log_s.replace("a.fits", "X") == log_u.replace("b.fits", "X")
+    assert "Clipped low" in log_s
+    a = tfits.read_file(str(tmp_path / "a.fits")).to_numpy()
+    b = tfits.read_file(str(tmp_path / "b.fits")).to_numpy()
+    np.testing.assert_array_equal(a, b)
+
+
+def test_require_cuda_takes_any_card():
+    """The kernels run on any cuda:k: require_cuda refuses only what is not
+    a contiguous CUDA tensor of the type, and every launching C entry sets
+    its device first (NL_USE_DEVICE) and takes (device, stream) last."""
+    from types import SimpleNamespace
+
+    from nightlight_tpu_torch import kernels
+
+    for k in (0, 1, 3):
+        t = SimpleNamespace(device=torch.device("cuda", k), dtype=torch.float32,
+                            is_contiguous=lambda: True)
+        kernels.require_cuda(t, "x", torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.require_cuda(torch.zeros(2), "x", torch.float32)
+    entries = 0
+    for src in sorted(kernels.CSRC.glob("*.cu")):
+        text = src.read_text()
+        for m in re.finditer(r'extern "C" int (nl_\w+)\(([^)]*)\) \{\n(.*)\n', text):
+            name, params, first = m.groups()
+            assert first.strip() == "NL_USE_DEVICE(device);", name
+            assert re.search(r"int device,\s+(void\* stream|int\* blocks)$", params), name
+            entries += 1
+    assert entries == 9
