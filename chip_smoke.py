@@ -32,15 +32,28 @@
    the closest single PyTorch call (K5/K6: none computes the function;
    x.sum(0) and torch.sort(x, dim=0) are recorded as floors).
 4. Writes BITPIX-16 fixtures (nightlight_tpu_torch/fixtures.py, the recipe
-   of scripts/gen_fixtures.py): 30 lights and a master dark.
+   of scripts/gen_fixtures.py): 48 lights and a master dark.
 5. Runs the port's CLI `stack` with -dark on the first N lights: auto mode
    at 30, 16 and 8 (linear fit, winsorized, sigma clip), -stMode 4 at 30
    (MAD, fused executor), -stMode 0 -lsEst 1 at 16 (median, per-frame
    operator path), -lsEst 2 and -lsEst 4 at 8 (sigma clip, per-frame).
    Checks the return code, the stacking mode, the per-frame path line and
    the clip line where expected, the output FITS and the kernel launch
-   counts of each run; then holds two small stacks on the card (defaults;
-   -stMode 4 -lsEst 1) against the same stacks on the CPU.
+   counts of each run of the first 30; then holds two small stacks on the
+   card (defaults; -stMode 4 -lsEst 1) against the same stacks on the CPU.
+5e. Ingest (nightlight_tpu_torch/io/ingest.py): ooc48, all 48 lights at
+   the defaults under the -stMemory for which the port's planner makes 3
+   random batches of 16 (phase_split.plan_st_memory; Python's random
+   seeded), the fused path out of core with the next batch read ahead
+   ("Prefetched" lines), then the same with NIGHTLIGHT_NO_PREFETCH=1 (the
+   loader reads each batch, but not the next one during this one's
+   compute), then with the prefetch again (ooc48_again, the first run
+   being the process's first out-of-core stack): outputs bit for bit,
+   logs equal apart from the Prefetched lines and timing, peak memory
+   under the planner's device budget, K1 and K4 launches; loader_reuse48,
+   the 48 lights through the loader in a shuffled order, its pinned pool
+   (4 buffers) far smaller than the frame count, each frame and its
+   min/mean/max bit for bit a direct read_file.
 5a. The device mesh (nightlight_tpu_torch/parallel/mesh.py), 4 shards on
    cuda:0, on step 4's lights: shard4_job16, tests/test_rest.py's
    live-stacking job (fixed sigmas) on 16 lights through `run_op` with
@@ -922,48 +935,29 @@ def small_commands(cli, fits_mod, fixtures, work: str) -> None:
     shutil.rmtree(sdir, ignore_errors=True)
 
 
-# The live-stacking job of tests/test_rest.py:182-195
 def serve_job(out: str) -> dict:
-    return {"type": "seq", "steps": [
-        {"type": "loadMany", "filePatterns": ["light*.fits"]},
-        {"type": "stackBatches", "perBatch": {"type": "seq", "steps": [
-            {"type": "starDetect", "radius": 16, "sigma": 15.0,
-             "badPixelSigma": 5.0, "inOutRatio": 1.4},
-            {"type": "selectRef", "target": 1, "mode": "%starsHFR"},
-            {"type": "selectRef", "target": 0, "mode": "%starsHFR"},
-            {"type": "matchHist", "mode": 2},
-            {"type": "align", "k": 20, "threshold": 1.0, "oobMode": 0},
-            {"type": "stack", "mode": 6, "sigmaLow": 2.75, "sigmaHigh": 2.75},
-        ]}},
-        {"type": "save", "filePattern": out},
-    ]}
+    """tests/test_rest.py's live-stacking job (nightlight_tpu_torch/scripts/
+    phase_split.py:live_stacking_job)."""
+    from nightlight_tpu_torch.scripts.phase_split import live_stacking_job
+
+    return live_stacking_job(out)
 
 
 SERVE_SEED = 123  # Python's random permutes the frames into batches
 SERVE_DEVICE = "cuda:0"
 
 
-def plan_st_memory(n: int, size: int, device) -> int:
-    """The smallest -stMemory, in steps of one frame's MiB, for which the
-    port's own batch planner (OpStackBatches._partition, the JSON job's
-    path) splits n size^2 frames into 2 batches of n/2 on this host."""
-    from nightlight_tpu_torch.pipeline.context import new_context
-    from nightlight_tpu_torch.pipeline.ops_stack import OpStackBatches
+def plan_st_memory(n: int, size: int, device, batches: int = 2, flags=None) -> int:
+    """The smallest -stMemory for which the port's own batch planner splits
+    n size^2 frames into `batches` batches of n / batches on this host: a
+    JSON job's stackBatches, or the CLI `stack` with `flags`
+    (nightlight_tpu_torch/scripts/phase_split.py:plan_st_memory)."""
+    from nightlight_tpu_torch.scripts.phase_split import plan_st_memory as plan
 
-    class Frame:
-        naxisn = [size, size]
-        file_name = "plan"
-
-    frame_mib = max(1, size * size * 4 >> 20)
-    for st in range(frame_mib, 4 * n * frame_mib + 1, frame_mib):
-        c = new_context(log=io.StringIO(), st_memory=st, device=device)
-        try:
-            _, batches, batch_size, _ = OpStackBatches()._partition([Frame] * n, c)
-        except ValueError:  # the budget fits no plan
-            continue
-        if (batches, batch_size) == (2, n // 2):
-            return st
-    raise SmokeFailure(f"no -stMemory plans {n} frames of {size}^2 as 2 batches")
+    try:
+        return plan(n, size, device, batches, flags)
+    except ValueError as e:
+        raise SmokeFailure(str(e)) from e
 
 
 def post_chunked(port: int, payload: dict, on_chunk=None):
@@ -1087,6 +1081,122 @@ def serve_batches16(cli, fits_mod, kernels, serve_dir: str, size: int, record) -
     check(same_bits, "run_batches16: output differs from the served one")
     check(same_lines, "run_batches16: log lines differ from the served ones")
     record("run_batches16", run_counts, run_seconds, run_peak)
+
+
+OOC_BATCHES = 3
+OOC_SEED = 3  # Python's random permutes ooc48's frames into batches
+OOC_DEVICE = "cuda:0"
+
+
+def ooc48(cli, fits_mod, kernels, lights, size: int, record) -> None:
+    """The fused path out of core: the lights + dark at the defaults under
+    the -stMemory for which the port's planner makes 3 random batches, with
+    the next batch read ahead, then with NIGHTLIGHT_NO_PREFETCH=1 (the
+    loader reads each batch ahead, but not the next batch during this
+    one's compute); outputs bit for bit, logs equal apart from the
+    Prefetched lines and timing, peak memory under the planner's device
+    budget."""
+    import torch
+
+    from nightlight_tpu_torch.io.ingest import WINDOW_BYTES
+    from nightlight_tpu_torch.pipeline.ops_stack import OpStackBatches
+
+    device = torch.device(OOC_DEVICE)
+    n = len(lights)
+    per = n // OOC_BATCHES
+    window_short = n * size * size * 2 > WINDOW_BYTES
+    flags = ("-dark", "dark.fits")
+    st = plan_st_memory(n, size, device, OOC_BATCHES, flags)
+    budget = OpStackBatches._device_memory_mb(device) * 5 // 10 / 1024
+    say(f"ooc48: -stMemory {st} MiB plans {OOC_BATCHES} batches of {per}; the planner's "
+        f"device budget {budget:.2f} GiB")
+    logs, outs = {}, {}
+    # the first run of the three is the process's first out-of-core stack
+    for name, no_prefetch in (("ooc48", False), ("ooc48_no_prefetch", True),
+                              ("ooc48_again", False)):
+        if no_prefetch:
+            os.environ["NIGHTLIGHT_NO_PREFETCH"] = "1"
+        try:
+            random.seed(OOC_SEED)
+            kernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            rc, log, seconds = run_cli(
+                cli, ["-out", f"{name}.fits", *flags, "-jpg", "", "-log", "", "-stMemory",
+                      str(st), "stack", *lights], f"chip_smoke_stack_{name}.log",
+                device=OOC_DEVICE)
+            counts = kernels.launch_counts()
+            peak = torch.cuda.max_memory_allocated() / (1 << 30)
+        finally:
+            os.environ.pop("NIGHTLIGHT_NO_PREFETCH", None)
+        prefetched = [ln for ln in log.splitlines() if ln.startswith("Prefetched ")]
+        say(f"stack {name} ({n} lights, defaults, -stMemory {st}): rc {rc} wall {seconds:.2f} s "
+            f"peak {peak:.2f} GiB launches {counts} {prefetched}")
+        check(rc == 0 and "Error:" not in log, f"{name}: rc {rc}; log tail: {log[-2000:]}")
+        check(f"Using {OOC_BATCHES} random batches of size {per} " in log, f"{name}: batch plan")
+        stacks = re.findall(r"Stacking (\d+) frames with stacking mode (\d) ", log)
+        check(len(stacks) == OOC_BATCHES, f"{name}: stacks {stacks}")
+        check(PER_FRAME not in log, f"{name}: per-frame operator path taken")
+        # the next batch is read ahead only where the read-ahead window
+        # cannot hold the whole set already
+        check(bool(prefetched) == (not no_prefetch and window_short),
+              f"{name}: Prefetched lines {prefetched} with NIGHTLIGHT_NO_PREFETCH={no_prefetch}")
+        check(counts["stack_clip"] > 0 and counts["gather_patches"] > 0,
+              f"{name}: launches {counts}")
+        check(peak < budget, f"{name}: peak {peak:.2f} GiB over the budget {budget:.2f}")
+        record(name, counts, seconds, peak)
+        logs[name] = [ln.replace(name, "ooc") for ln in log.splitlines()
+                      if not ln.startswith(("Prefetched ", "Done after"))]
+        outs[name] = check_output(fits_mod, f"{name}.fits", size)
+        os.remove(f"{name}.fits")
+    same_bits = all(np.array_equal(outs["ooc48"], o, equal_nan=True) for o in outs.values())
+    same_lines = all(lines == logs["ooc48"] for lines in logs.values())
+    say(f"ooc48 against ooc48_no_prefetch and ooc48_again: outputs bit for bit {same_bits}, "
+        f"log lines equal {same_lines}")
+    check(same_bits, "ooc48: the output differs without the prefetch")
+    check(same_lines, "ooc48: the log differs without the prefetch")
+
+
+def loader_reuse48(fits_mod, lights) -> None:
+    """Every light through the read-ahead loader on cuda:0 in a shuffled
+    order, as fast as the consumer can take them, its pool of pinned
+    buffers far smaller than the frame count; then each frame, and its
+    min/mean/max, bit for bit a direct read_file."""
+    import torch
+
+    from nightlight_tpu_torch.io import ingest
+
+    device = torch.device(OOC_DEVICE)
+    ids = {name: i for i, name in enumerate(lights)}
+    order = list(lights)
+    random.Random(OOC_SEED).shuffle(order)
+    loader = ingest.ReadAheadLoader.try_create(list(enumerate(lights)), io.StringIO(), device)
+    check(loader is not None, "loader_reuse48: try_create refused BITPIX-16 lights")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = {}
+        for name in order:
+            img = loader.get(name)
+            img.stats._ensure_mmm()
+            got[name] = img
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        pinned, inline, reads = loader.pinned_buffers, loader.inline_reads, loader.read_seconds
+    finally:
+        loader.close()
+    apart = []
+    for name in order:
+        ref = fits_mod.read_file(name, id=ids[name], log=io.StringIO(), device=device)
+        img = got.pop(name)
+        if not (torch.equal(img.data, ref.data) and img.id == ref.id and (
+                img.stats.min, img.stats.mean, img.stats.max) == (
+                ref.stats.min, ref.stats.mean, ref.stats.max)):
+            apart.append(name)
+    say(f"loader_reuse48: {len(order)} lights through the loader in {seconds:.3f} s (page "
+        f"cache warm), {pinned} pinned buffers, {inline} read inline, workers' reads "
+        f"{reads:.3f} s; frames apart from read_file {apart}")
+    check(0 < pinned < len(order), f"loader_reuse48: {pinned} pinned buffers")
+    check(not apart, f"loader_reuse48: frames differ from read_file: {apart}")
 
 
 # the smoke run's device mesh: 4 shards, all on one card
@@ -1556,8 +1666,9 @@ def main() -> int:
     peaks = {}
     try:
         t0 = time.perf_counter()
-        lights = [os.path.basename(p) for p in fixtures.gen(work, 30, size, seed=7)]
-        say(f"fixtures: 30 lights + dark of {size}x{size} in {time.perf_counter() - t0:.1f} s")
+        all_lights = [os.path.basename(p) for p in fixtures.gen(work, 48, size, seed=7)]
+        lights = all_lights[:30]
+        say(f"fixtures: 48 lights + dark of {size}x{size} in {time.perf_counter() - t0:.1f} s")
         os.chdir(work)
         for name, n, flags, mode, kernel, per_frame, clipped in STACKS:
             out = f"stack_{name}.fits"
@@ -1595,6 +1706,13 @@ def main() -> int:
             per_stack[name] = counts
             walls[name] = seconds
             peaks[name] = peak
+
+        # ingest (io/ingest.py): the out-of-core stack, the pinned pool
+        ooc48(cli, nlfits, kernels, all_lights, size, record)
+        loader_reuse48(nlfits, all_lights)
+        for ln in all_lights[30:]:
+            os.remove(ln)
+        torch.cuda.empty_cache()
 
         # the device mesh (parallel/mesh.py): 4 shards on cuda:0
         shard4_job16(cli, nlfits, kernels, lights, size, record)

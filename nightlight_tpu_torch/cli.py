@@ -278,9 +278,12 @@ def run_op(op, c) -> None:
     from nightlight_tpu_torch.pipeline.operators import materialize_all
 
     c.logf("\nRunning JSON job:\n%s\n", op.to_json())
-    promises = op.make_promises([], c)
-    _, err = materialize_all(promises, forget=True)
-    c.finalize()
+    try:
+        promises = op.make_promises([], c)
+        _, err = materialize_all(promises, forget=True)
+        c.finalize()
+    finally:
+        c.close()
     if err is not None:
         raise err
 

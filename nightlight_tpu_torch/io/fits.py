@@ -4,10 +4,12 @@ Mirror of nightlight_tpu/io/fits.py (reference: internal/fits/read.go,
 write.go): 2880-byte header blocks of 80-character lines parsed with the
 same grammar, BITPIX 8/16/32/64/-32/-64 big-endian payloads with BZERO/
 BSCALE folded in, transparent gzip, TIFF input by suffix. Integer payloads
-of BITPIX 8 and 16 go to the device raw (half or a quarter of the float32
-bytes) and are byte-swapped and scaled there by torch; the wider types are
-decoded by numpy on the host. The writer emits byte-identical files to the
-JAX package's writer.
+of BITPIX 8 and 16 are read straight into a caller's buffer (`readinto`),
+go to the device raw (half or a quarter of the float32 bytes) and are
+byte-swapped and scaled there by torch (decode_raw); the wider types are
+decoded by numpy on the host. read_raw splits reading from decoding for
+the read-ahead loader (io/ingest.py). The writer emits byte-identical
+files to the JAX package's writer.
 """
 
 from __future__ import annotations
@@ -163,6 +165,24 @@ def _read_line(h: Header, m: re.Match) -> None:
 
 def _read_payload(img: Image, f: BinaryIO, pixels: int, log, device) -> Image:
     """Decode the payload to float32 (read.go:145-443)."""
+    dtype = _payload_dtype(img, log)
+    if img.bitpix in (8, 16):
+        buf = np.empty(pixels * dtype.itemsize, dtype=np.uint8)
+        _read_into(f, buf, img.id)
+        return attach_raw(img, torch.from_numpy(buf).to(device))
+
+    raw = f.read(pixels * dtype.itemsize)
+    if len(raw) < pixels * dtype.itemsize:
+        raise ValueError(f"{img.id}: unexpected EOF in FITS data")
+    data, vmin, vmean, vmax = decode_payload(raw, dtype, pixels, img.bscale, img.bzero)
+    img.bzero, img.bscale = 0.0, 1.0  # folded in (read.go:205)
+    img.data = torch.from_numpy(data.reshape(tuple(reversed(img.naxisn)))).to(device)
+    img.stats = Stats.with_mmm(img.data, img.naxisn[0], vmin, vmax, vmean)
+    return img
+
+
+def _payload_dtype(img: Image, log) -> np.dtype:
+    """The payload's dtype, with the reference's precision warnings."""
     dtype = _BITPIX_DTYPES.get(img.bitpix)
     if dtype is None:
         raise ValueError(f"{img.id}: Unknown BITPIX value {img.bitpix}")
@@ -172,41 +192,78 @@ def _read_payload(img: Image, f: BinaryIO, pixels: int, log, device) -> Image:
     elif img.bitpix == -64:
         print(f"{img.id}: Warning: loss of precision converting float64 to float32 values",
               file=log)
+    return dtype
 
-    raw = f.read(pixels * dtype.itemsize)
-    if len(raw) < pixels * dtype.itemsize:
-        raise ValueError(f"{img.id}: unexpected EOF in FITS data")
+
+def _read_into(f: BinaryIO, buf, id: int) -> None:
+    """Fill `buf` (a writable uint8 buffer) from `f`; a short file raises
+    the reader's EOF error."""
+    view = memoryview(buf).cast("B")
+    got = 0
+    while got < len(view):
+        n = f.readinto(view[got:])
+        if not n:
+            raise ValueError(f"{id}: unexpected EOF in FITS data")
+        got += n
+
+
+def _host_buffer(nbytes: int) -> torch.Tensor:
+    return torch.from_numpy(np.empty(nbytes, dtype=np.uint8))
+
+
+def read_raw(file_name: str, id: int = 0, log=None, alloc=_host_buffer):
+    """Header parse and the UNDECODED payload, for the read-ahead loader
+    (io/ingest.py); mirror of nightlight_tpu/io/fits.py:read_raw.
+
+    Returns ``(img, raw)``. For BITPIX 8/16 payloads ``raw`` is a uint8 CPU
+    tensor of the big-endian payload bytes, read straight into
+    ``alloc(nbytes)`` (a host tensor of exactly that size; a pinned one
+    lets the copy to the card run asynchronously), and ``img.data`` is
+    unset: attach_raw decodes it once ``raw`` is on its device. Other
+    payloads (float, wider integers, TIFF) are decoded on the host as
+    read_file does, ``img.data`` a CPU tensor with its min/mean/max, and
+    ``raw`` is None. Header semantics and errors are read_file's."""
+    lower = file_name.lower()
+    if lower.endswith((".tif", ".tiff")):
+        from nightlight_tpu_torch.io.tiff import read_tiff
+
+        return read_tiff(file_name, id=id), None
+    img = Image(id=id, file_name=file_name)
+    opener = gzip.open if lower.endswith((".gz", ".gzip")) else open
+    with opener(file_name, "rb") as f:
+        read(img, f, read_data=False, log=log)
+        pixels = 1
+        for n in img.naxisn:
+            pixels *= n
+        if img.bitpix not in (8, 16):
+            return _read_payload(img, f, pixels, log, "cpu"), None
+        raw = alloc(pixels * _payload_dtype(img, log).itemsize)
+        _read_into(f, raw.numpy(), id)
+    return img, raw
+
+
+def attach_raw(img: Image, raw: torch.Tensor) -> Image:
+    """Decode `raw`, a BITPIX 8/16 payload already on its device, into
+    img.data, BZERO/BSCALE folded in, with lazy statistics."""
     shape = tuple(reversed(img.naxisn))
-
-    if img.bitpix in (8, 16):
-        img.data = decode_int_on_device(raw, img.bitpix, pixels, img.bscale, img.bzero,
-                                        device).reshape(shape)
-        img.bzero, img.bscale = 0.0, 1.0
-        img.stats = Stats(img.data, img.naxisn[0])
-        return img
-
-    data, vmin, vmean, vmax = decode_payload(raw, dtype, pixels, img.bscale, img.bzero)
-    img.bzero, img.bscale = 0.0, 1.0  # folded in (read.go:205)
-    img.data = torch.from_numpy(data.reshape(shape)).to(device)
-    img.stats = Stats.with_mmm(img.data, img.naxisn[0], vmin, vmax, vmean)
+    img.data = decode_raw(raw, img.bitpix, img.bscale, img.bzero).reshape(shape)
+    img.bzero, img.bscale = 0.0, 1.0
+    img.stats = Stats(img.data, img.naxisn[0])
     return img
 
 
-def decode_int_on_device(raw: bytes, bitpix: int, pixels: int, bscale: float,
-                         bzero: float, device) -> torch.Tensor:
-    """Upload a BITPIX 8/16 payload as raw integers and decode it on
-    `device`: byte swap (16-bit payloads are big-endian), then
-    v = int * bscale + bzero in float32 (read.go:205)."""
+def decode_raw(raw: torch.Tensor, bitpix: int, bscale: float, bzero: float) -> torch.Tensor:
+    """Decode a raw BITPIX 8/16 payload (a uint8 tensor of its bytes) on its
+    device: byte swap (16-bit payloads are big-endian), then
+    v = int * bscale + bzero in float32 (read.go:205). Flat result."""
     if bitpix == 16:
-        host = np.frombuffer(raw, dtype="<i2", count=pixels)
-        v = torch.from_numpy(host.copy()).to(device).to(torch.int32) & 0xFFFF
+        v = raw.view(torch.int16).to(torch.int32) & 0xFFFF
         swapped = ((v << 8) | (v >> 8)) & 0xFFFF
         ints = torch.where(swapped >= 0x8000, swapped - 0x10000, swapped)
     else:
-        host = np.frombuffer(raw, dtype=np.uint8, count=pixels)
-        ints = torch.from_numpy(host.copy()).to(device)
-    scale = torch.tensor(float(bscale), dtype=torch.float32, device=device)
-    zero = torch.tensor(float(bzero), dtype=torch.float32, device=device)
+        ints = raw
+    scale = torch.tensor(float(bscale), dtype=torch.float32, device=raw.device)
+    zero = torch.tensor(float(bzero), dtype=torch.float32, device=raw.device)
     return ints.to(torch.float32) * scale + zero
 
 

@@ -414,8 +414,8 @@ class Stats:
 
     def _ensure_mmm(self) -> None:
         if not self._have_mmm:
-            mn, me, mx = min_mean_max(self._flat())
-            self._min, self._mean, self._max = float(mn), float(me), float(mx)
+            # one read-back of the three: each float() would wait for the card
+            self._min, self._mean, self._max = torch.stack(min_mean_max(self._flat())).tolist()
             self._have_mmm = True
 
     @property

@@ -65,6 +65,7 @@ class Context:
     lock: threading.Lock = field(default_factory=threading.Lock)
     _log_buffer: list = field(default_factory=list)
     _mesh: Any = None
+    _owned: list = field(default_factory=list)  # read-ahead loaders of this run
 
     @property
     def mesh(self):
@@ -100,6 +101,18 @@ class Context:
             self.stats_file.write(_SESSION_STATS_TRAILER)
             self.stats_file.close()
             self.stats_file = None
+
+    def own(self, loader) -> None:
+        """Tie a read-ahead loader (io/ingest.py) to this run: close()
+        stops it."""
+        self._owned.append(loader)
+
+    def close(self) -> None:
+        """Stop the run's loaders and free their buffers; a CLI run or a
+        served job calls this when it ends, also when it fails."""
+        owned, self._owned = self._owned, []
+        for loader in owned:
+            loader.close()
 
     def logf(self, fmt: str, *args) -> None:
         """Printf-style logging in the JAX package's order (module doc)."""

@@ -5,7 +5,8 @@ nightlight_tpu/pipeline/operators.py.
 
 The JSON job format -- ``type`` tags and field names -- is the same as the
 JAX package's. Execution is eager: promises are plain callables run in
-order on the calling thread (no thread pool, no deferred pool).
+order on the calling thread (no thread pool, no deferred pool); frame files
+are read ahead on the loader's threads (io/ingest.py).
 """
 
 from __future__ import annotations
@@ -121,7 +122,13 @@ class UnaryOperator(Operator):
 def materialize_all(ins: list[Promise], forget: bool = False, compact: bool = True):
     """Run promises in order, aggregating and deduplicating errors and
     dropping None results unless compact=False (operator.go:73-131).
-    Returns (images, error or None)."""
+    Returns (images, error or None).
+
+    Sequential on purpose: device work stays on one thread and one stream.
+    The JAX package's pool here stands in for the reference's goroutines,
+    whose gain is reading files while the device computes; the port gets
+    that overlap from the read-ahead loader's threads (io/ingest.py), which
+    read the frames of a load set ahead of these promises."""
     outs: list[Optional[Image]] = [None] * len(ins)
     errors: list[Exception] = []
     for i, p in enumerate(ins):
@@ -178,6 +185,10 @@ class OpLoad(Operator):
     TYPE = "load"
     PARAMS = {"id": ("id", 0), "file_name": ("fileName", "")}
 
+    def __init__(self, prefetcher=None, **kwargs):
+        super().__init__(**kwargs)
+        self._prefetcher = prefetcher  # the load set's read-ahead loader, optional
+
     def make_promises(self, ins, c):
         if ins:
             raise ValueError(f"{self.TYPE} operator with non-zero input")
@@ -186,13 +197,18 @@ class OpLoad(Operator):
         def promise():
             return self.apply(None, c)
 
+        # batch schedulers find the load order and the loader through this
+        # (OpStackBatches announces each out-of-core batch)
         promise.op = self
         return [promise]
 
     def apply(self, _unused, c: Context) -> Image:
-        from nightlight_tpu_torch.io.fits import read_file
+        if self._prefetcher is not None:
+            f = self._prefetcher.get(self.file_name)
+        else:
+            from nightlight_tpu_torch.io.fits import read_file
 
-        f = read_file(self.file_name, id=self.id, log=c.log, device=c.device)
+            f = read_file(self.file_name, id=self.id, log=c.log, device=c.device)
         f.stats.mode = c.ls_estimator_mode
         f.stats._ensure_mmm()
         c.logf("%d: Loaded %s image with %s from %s%s\n",
@@ -211,16 +227,31 @@ class OpLoadMany(Operator):
     def make_promises(self, ins, c):
         if ins:
             raise ValueError(f"{self.TYPE} operator with non-zero input")
-        outs: list[Promise] = []
+        specs: list[tuple[int, str]] = []
         for pattern in self.file_patterns or []:
             for match in sorted(globmod.glob(pattern)):
                 if not ALLOW_ABSOLUTE_PATHS and not is_path_allowed(match):
                     c.logf("Pattern match outside current directory tree, skipping\n")
                     continue
-                outs.extend(OpLoad(id=len(outs), file_name=match).make_promises([], c))
-        if not outs:
+                specs.append((len(specs), match))
+        if not specs:
             raise ValueError(
                 f"{self.TYPE} operator with no files to load from pattern {self.file_patterns}")
+        from nightlight_tpu_torch.io.ingest import LOOKAHEAD, ReadAheadLoader
+
+        # integer frames: raw payloads read ahead within a byte window;
+        # else host decode ahead, worth it only with a spare core, as the
+        # JAX package's gates decide (operators.py:385-398)
+        prefetcher = ReadAheadLoader.try_create(specs, c.log, c.device)
+        if prefetcher is None and len(specs) > 1 and (os.cpu_count() or 1) > 1:
+            prefetcher = ReadAheadLoader(specs, c.log, c.device, window_bytes=None,
+                                         lookahead=LOOKAHEAD)
+        if prefetcher is not None:
+            c.own(prefetcher)
+        outs: list[Promise] = []
+        for id_, match in specs:
+            outs.extend(OpLoad(id=id_, file_name=match, prefetcher=prefetcher)
+                        .make_promises([], c))
         c.logf("Found %d files.\n", len(outs))
         return outs
 

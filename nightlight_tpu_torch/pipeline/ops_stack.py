@@ -5,6 +5,7 @@ internal/ops/stack/stack.go, stackbatches.go)."""
 
 from __future__ import annotations
 
+import os
 import random
 from dataclasses import dataclass
 
@@ -188,6 +189,9 @@ class OpStackBatches(Operator):
         self.per_batch = per_batch or OpSequence()
         self.fused_spec = fused_spec
         self.fused_reason = fused_reason
+        # raw bytes of the next batch read ahead during this batch's
+        # compute; set by _partition for a multi-batch fused run
+        self._prefetch_bytes = 0
 
     def to_dict(self) -> dict:
         return {"type": self.TYPE, "perBatch": self.per_batch.to_dict()}
@@ -215,8 +219,9 @@ class OpStackBatches(Operator):
         stack_frames = 0
         for b in range(num_batches):
             batch = ins_perm[b * batch_size:(b + 1) * batch_size]
+            next_batch = ins_perm[(b + 1) * batch_size:(b + 2) * batch_size]
             c.logf("\nStarting batch %d of %d with %d frames...\n", b + 1, num_batches, len(batch))
-            promises = self._batch_promises(batch, c)
+            promises = self._batch_promises(batch, c, next_batch=next_batch)
             if len(promises) != 1:
                 raise ValueError("stacking returned more than one promise")
             batch_img = promises[0]()
@@ -234,13 +239,53 @@ class OpStackBatches(Operator):
             stack_img.set_data(stk.stack_incremental_finalize(stack_acc, float(stack_frames)))
         return stack_img
 
-    def _batch_promises(self, batch, c: Context):
+    @staticmethod
+    def _batch_loader(batch):
+        """(load order, read-ahead loader) found through a batch's load
+        promises (io/ingest.py)."""
+        names, loader = [], None
+        for p in batch:
+            op = getattr(p, "op", None)
+            fn = getattr(op, "file_name", None)
+            if fn:
+                names.append(fn)
+                loader = getattr(op, "_prefetcher", None) or loader
+        return names, loader
+
+    @classmethod
+    def _announce_batch(cls, batch) -> None:
+        """Tell the load set's loader this batch's load order, so that its
+        readers take this batch's frames first."""
+        names, loader = cls._batch_loader(batch)
+        if names and loader is not None:
+            loader.reorder(names)
+
+    def _prefetch_next(self, next_batch, c: Context) -> None:
+        """Read the NEXT batch's frames ahead now, while this batch's
+        preprocess, alignment and stack run: its raw payloads wait on the
+        card within the reserve _partition budgeted. The reference's batch
+        loop is strictly sequential, its constraint being host memory
+        (stackbatches.go:56-107). NIGHTLIGHT_NO_PREFETCH=1 turns it off
+        (the JAX package's A/B control); the loader still reads each batch
+        ahead within its window."""
+        if not next_batch or not self._prefetch_bytes \
+                or os.environ.get("NIGHTLIGHT_NO_PREFETCH"):
+            return
+        names, loader = self._batch_loader(next_batch)
+        if not names or loader is None:
+            return
+        n = loader.prefetch_ahead(names, self._prefetch_bytes)
+        if n:
+            c.logf("Prefetched %d frames of the next batch during this batch's compute.\n", n)
+
+    def _batch_promises(self, batch, c: Context, next_batch=None):
         """Promise chain for one batch: the fused whole-batch preprocess
         followed by the rest of the per-batch chain when the batch is
         eligible, else the per-frame operator chain, with the JAX package's
         line saying why (nightlight_tpu/pipeline/ops_stack.py)."""
         from nightlight_tpu_torch.models.fastpath import fused_batch_eligible, run_fused_preprocess
 
+        self._announce_batch(batch)
         if self.fused_spec is None or not self.per_batch.steps:
             if self.per_batch.steps and self.fused_reason:
                 c.logf("Fused batch executor off (%s); using the per-frame "
@@ -249,6 +294,9 @@ class OpStackBatches(Operator):
         images, err = materialize_all(batch)
         if err is not None:
             raise err
+        # this batch's frames are loaded; queue the next batch's reads
+        # before this batch's compute
+        self._prefetch_next(next_batch, c)
         wrapped = [lambda img=img: img for img in images]
         eligible, reason = fused_batch_eligible(images, c)
         if not eligible:
@@ -262,16 +310,24 @@ class OpStackBatches(Operator):
     @staticmethod
     def _device_memory_mb(device: torch.device) -> int:
         """Usable accelerator memory in MiB: the free memory of a CUDA
-        device; on the CPU the JAX package's answer (effectively unbounded,
-        host memory governs)."""
+        device plus what PyTorch's allocator holds cached and unused (its
+        to reuse, or to release under pressure), so that the plan does not
+        depend on what earlier work left in the cache (the read-ahead
+        loader's side stream keeps a pool of its own); on the CPU the JAX
+        package's answer (effectively unbounded, host memory governs)."""
         if device.type == "cuda":
             free, _total = torch.cuda.mem_get_info(device)
-            return int(free // (1 << 20))
+            cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+            return int((free + cached) // (1 << 20))
         return 1 << 30
 
     def _partition(self, ins, c: Context):
         """Memory-budget solver + random permutation (stackbatches.go:121-210)."""
         num_frames = len(ins)
+        # measured before any frame is loaded: the read-ahead loader starts
+        # reading at the first frame taken, and its frames on the device
+        # must not move the plan
+        device_mb = self._device_memory_mb(c.device)
         if c.dark_frame is not None:
             width, height = c.dark_frame.naxisn[0], c.dark_frame.naxisn[1]
         elif c.flat_frame is not None:
@@ -298,11 +354,11 @@ class OpStackBatches(Operator):
             detect_ws_mb = (DETECT_CHUNK * MAX_CANDIDATES
                             * ((patch + 15) // 8 * 8) * ((patch + 127) // 128 * 128)
                             * 4 * 6) >> 20
-            dev_budget_mb = self._device_memory_mb(c.device) * 5 // 10
+            dev_budget_mb = device_mb * 5 // 10
             dev_frames = max(0, dev_budget_mb - detect_ws_mb) // max(1, 2 * mib)
             available_frames = min((c.stack_memory_mb << 20) // nbytes, dev_frames)
         else:
-            budget_mb = min(c.stack_memory_mb, self._device_memory_mb(c.device) * 6 // 10)
+            budget_mb = min(c.stack_memory_mb, device_mb * 6 // 10)
             available_frames = (budget_mb << 20) // nbytes
         c.logf("CPU has %d threads. Physical memory is %d MiB, -op.Memory is %d MiB,"
                " this fits %d frames.\n", c.max_threads, c.memory_mb, c.stack_memory_mb,
@@ -339,14 +395,17 @@ class OpStackBatches(Operator):
             return num_batches, batch_size, max_threads
 
         num_batches, batch_size, max_threads = solve(available_frames)
+        self._prefetch_bytes = 0
         if num_batches > 1 and self.fused_spec is not None:
-            # the JAX package re-solves a multi-batch run with a reserve for
-            # prefetching the next batch (2.5x instead of 2x the frame size
-            # per frame); the same plan keeps the batches identical
-            dev_budget_mb = self._device_memory_mb(c.device) * 5 // 10
+            # a reserve for the next batch's raw frames (half a float32
+            # frame each), read ahead while this batch holds its float32
+            # frames through the warp: 2.5x instead of 2x the frame size
+            # per frame. Re-solve with it, as the JAX package does.
+            dev_budget_mb = device_mb * 5 // 10
             dev_frames_r = max(0, dev_budget_mb - detect_ws_mb) // max(1, 2 * mib + (mib + 1) // 2)
             num_batches, batch_size, max_threads = solve(
                 min((c.stack_memory_mb << 20) // nbytes, dev_frames_r))
+            self._prefetch_bytes = batch_size * (nbytes // 2)
         c.logf("Using %d random batches of size %d with %d images in parallel.\n",
                num_batches, batch_size, max_threads)
         ins_perm = list(ins)

@@ -195,6 +195,7 @@ class Handler(BaseHTTPRequestHandler):
         except Exception as e:  # noqa: BLE001 - reported on the stream
             log.write(f"Error making promises: {e}\n")
         finally:
+            c.close()  # the job's readers stop before the next job starts
             _job_lock.release()
         log.close_chunks()
 

@@ -123,7 +123,7 @@ def test_cli_without_a_card_raises(tmp_path, monkeypatch):
     assert tctx.new_context(log=io.StringIO(), device="cpu").device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("script", ["phase_split", "gather_split", "mesh_cards"])
+@pytest.mark.parametrize("script", ["phase_split", "gather_split", "mesh_cards", "load_split"])
 def test_measurement_scripts_without_a_card_raise(monkeypatch, script):
     """The measurement scripts time the card and nothing else: without a
     CUDA device they stop before any work."""
