@@ -55,13 +55,17 @@
    (4 buffers) far smaller than the frame count, each frame and its
    min/mean/max bit for bit a direct read_file.
 5a. The device mesh (nightlight_tpu_torch/parallel/mesh.py), 4 shards on
-   cuda:0, on step 4's lights: shard4_job16, tests/test_rest.py's
-   live-stacking job (fixed sigmas) on 16 lights through `run_op` with
-   and without c.mesh, held to the context-job band (rtol 1e-4, atol
-   1e-3) with equal log lines and 4x the K1 launches; shard4_auto16, the
-   `stack` preset's defaults on 16 lights + dark under the mesh (fused
-   executor off, mode 3, the sharded goal-seek on target, a finite
-   output; the share of pixels apart from the unsharded run printed);
+   cuda:0, on step 4's lights, each frame row-sharded from its load and
+   the per-frame operators run on the shards: shard4_job16,
+   tests/test_rest.py's live-stacking job on 16 lights through `run_op`,
+   and shard4_auto16 and shard4_auto30, the `stack` preset's defaults on
+   16 and 30 lights + dark (mode 3 with K1, mode 5 with K2, the goal-seek
+   on target). Each against the same job unsharded on the per-frame path:
+   every frame placed as 4 blocks of (size/4, size), no gather but
+   detection's copy of each frame and the stacked image (the mesh's
+   gather counter), the log line for line and the output bit for bit,
+   4x the K1/K2 launches and as many K4 launches, each run's wall and
+   peak beside the card's name and power limit;
    mesh_step16, run_sharded_full_stack and the halo step that
    sharded_full_pipeline_step_auto picks on 16 lights with the fixture's
    drift, each bit for bit the unsharded _full_pipeline_step, and
@@ -1213,28 +1217,51 @@ def shard_mesh():
     return make_mesh([torch.device(MESH_DEVICE)] * SHARDS)
 
 
-def run_op_on(cli, kernels, op, mesh, log_name: str):
+def run_op_on(cli, kernels, op, mesh, log_name: str, per_frame: bool = False):
     """Run an operator job through the port's `run_op` on cuda:0 with
-    c.mesh = mesh (None: unsharded), the launch counts set to 0 just
-    before; returns (log, seconds, counts, peak GiB)."""
+    c.mesh = mesh (None: unsharded; per_frame: the fused executor found
+    ineligible for each batch, the path a mesh takes, after the same loads
+    and batch plan), the launch counts and the mesh's gather counts set to
+    0 just before, and every frame's placement after its load recorded;
+    returns (log, seconds, counts, peak GiB, gathers, placements)."""
     import torch
 
+    from nightlight_tpu_torch.models import fastpath
+    from nightlight_tpu_torch.parallel import mesh as pmesh
+    from nightlight_tpu_torch.pipeline import operators
     from nightlight_tpu_torch.pipeline.context import new_context
 
     log = io.StringIO()
     c = new_context(log=log, device=MESH_DEVICE)
     c.mesh = mesh
-    kernels.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    cli.run_op(op, c)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    placements = []
+    load = operators.OpLoad.apply
+
+    def placed(self, _unused, ctx):
+        f = load(self, _unused, ctx)
+        d = f.data
+        placements.append([tuple(b.shape) for b in d.blocks]
+                          if isinstance(d, pmesh.RowSharded) else [tuple(d.shape)])
+        return f
+
+    operators.OpLoad.apply = placed
+    try:
+        kernels.reset_launch_counts()
+        pmesh.GATHERS.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with fastpath.per_frame_path(per_frame):
+            cli.run_op(op, c)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        operators.OpLoad.apply = load
     counts = kernels.launch_counts()
+    gathers = dict(pmesh.GATHERS)
     peak = torch.cuda.max_memory_allocated() / (1 << 30)
     text = log.getvalue()
     write_log(log_name, text)
-    return text, seconds, counts, peak
+    return text, seconds, counts, peak, gathers, placements
 
 
 def pixels_apart(a, b) -> int:
@@ -1242,13 +1269,54 @@ def pixels_apart(a, b) -> int:
     return int((~((a == b) | (np.isnan(a) & np.isnan(b)))).sum())
 
 
+def same_lines(log_s: str, log_u: str, outs) -> bool:
+    """The two jobs' log lines after the JSON echo equal, the outputs'
+    names and the fused-off line's reason blanked."""
+    def lines(log, out):
+        return [PER_FRAME if ln.startswith(PER_FRAME) else ln
+                for ln in job_lines(log.replace(out, "OUT"))]
+    return lines(log_s, outs[0]) == lines(log_u, outs[1])
+
+
+def sharded_against_unsharded(name: str, fits_mod, size: int, n: int, sharded, unsharded,
+                              outs, kernel: str, record) -> None:
+    """The checks of a shard4_* phase: every frame placed as 4 blocks of
+    (size/4, size), no gather but detection's copies and the stacked image,
+    the log line for line and the output bit for bit the unsharded
+    per-frame run's, `kernel` launched 4x as often and K4 as often; each
+    run's wall and peak beside the card."""
+    log_s, sec_s, cnt_s, peak_s, gath_s, place_s = sharded
+    log_u, sec_u, cnt_u, peak_u, _, _ = unsharded
+    shard = check_output(fits_mod, outs[0], size)
+    plain = check_output(fits_mod, outs[1], size)
+    apart = pixels_apart(shard, plain)
+    lines_equal = same_lines(log_s, log_u, outs)
+    blocks = [(size // SHARDS, size)] * SHARDS
+    say(f"{name} ({n} lights, {SHARDS} shards on cuda:0; {card_line()}): first load "
+        f"{place_s[0]}; gathers {gath_s}; wall {sec_s:.3f} s peak {peak_s:.2f} GiB launches "
+        f"{cnt_s}; unsharded per-frame wall {sec_u:.3f} s peak {peak_u:.2f} GiB launches "
+        f"{cnt_u}; pixels apart {apart}, log lines equal {lines_equal}")
+    check("Error" not in log_s and "Error" not in log_u, f"{name}: error in a log")
+    check(place_s[0] == blocks and all(p == blocks for p in place_s),
+          f"{name}: placement {place_s[:2]}")
+    check(gath_s == {"detect": n, "stacked": 1}, f"{name}: gathers {gath_s}")
+    check(lines_equal, f"{name}: log lines differ from the unsharded run")
+    check(apart == 0, f"{name}: {apart} pixels apart from the unsharded run")
+    check(cnt_u[kernel] > 0 and cnt_s[kernel] == SHARDS * cnt_u[kernel],
+          f"{name}: {kernel} launches {cnt_s[kernel]} against {cnt_u[kernel]}")
+    check(cnt_s["gather_patches"] == cnt_u["gather_patches"] > 0,
+          f"{name}: gather_patches launches")
+    record(name, cnt_s, sec_s, peak_s)
+    record(f"{name}_unsharded", cnt_u, sec_u, peak_u)
+    for out in outs:
+        os.remove(out)
+
+
 def shard4_job16(cli, fits_mod, kernels, lights, size: int, record) -> None:
     """tests/test_rest.py's live-stacking job (fixed sigmas, as
     serve_batches16 runs it) on 16 lights, unsharded and then with a mesh of
-    4 shards on cuda:0. Under the mesh the batch takes the per-frame
-    projection; unsharded it may take the fused shift-warp. Held to the
-    context-job band of tests/test_torch_mesh.py (rtol 1e-4, atol 1e-3; the
-    CPU run is bit for bit), equal log lines, 4x the K1 launches."""
+    4 shards on cuda:0: each frame row-sharded from its load, the per-frame
+    operators on the shards, the batch cube from each shard's blocks."""
     from nightlight_tpu_torch.pipeline import op_from_dict
 
     def job(out):
@@ -1256,76 +1324,46 @@ def shard4_job16(cli, fits_mod, kernels, lights, size: int, record) -> None:
         d["steps"][0]["filePatterns"] = list(lights[:16])
         return op_from_dict(d)
 
-    log_u, sec_u, cnt_u, peak_u = run_op_on(cli, kernels, job("job16_plain.fits"), None,
-                                            "chip_smoke_job16_unsharded.log")
-    log_s, sec_s, cnt_s, peak_s = run_op_on(cli, kernels, job("job16_shard.fits"),
-                                            shard_mesh(), "chip_smoke_shard4_job16.log")
-    plain = check_output(fits_mod, "job16_plain.fits", size)
-    shard = check_output(fits_mod, "job16_shard.fits", size)
-    apart = pixels_apart(shard, plain)
-    same_lines = (job_lines(log_s.replace("job16_shard", "X"))
-                  == job_lines(log_u.replace("job16_plain", "X")))
-    say(f"shard4_job16 (16 lights, live-stacking job, {SHARDS} shards on cuda:0): wall "
-        f"{sec_s:.3f} s peak {peak_s:.2f} GiB launches {cnt_s}; unsharded wall {sec_u:.3f} s "
-        f"peak {peak_u:.2f} GiB launches {cnt_u}; pixels apart {apart}, log lines equal "
-        f"{same_lines}")
-    check("Error" not in log_s and "Error" not in log_u, "shard4_job16: error in a log")
-    check("Stacking 16 frames with stacking mode 3 " in log_s, "shard4_job16: stacking line")
-    check(same_lines, "shard4_job16: log lines differ from the unsharded run")
-    check(cnt_u["stack_clip"] > 0 and cnt_s["stack_clip"] == SHARDS * cnt_u["stack_clip"],
-          f"shard4_job16: K1 launches {cnt_s['stack_clip']} against {cnt_u['stack_clip']}")
-    check(cnt_s["gather_patches"] == cnt_u["gather_patches"] > 0,
-          "shard4_job16: gather_patches launches")
-    m = np.isfinite(plain) & np.isfinite(shard)
-    check(bool((np.isnan(plain) == np.isnan(shard)).all()) and m.mean() > 0.99 and
-          np.allclose(shard[m], plain[m], rtol=1e-4, atol=1e-3),
-          "shard4_job16: output outside the band of the unsharded one")
-    record("shard4_job16", cnt_s, sec_s, peak_s)
-    record("job16_unsharded", cnt_u, sec_u, peak_u)
-    for name in ("job16_plain.fits", "job16_shard.fits"):
-        os.remove(name)
+    outs = ("job16_shard.fits", "job16_plain.fits")
+    unsharded = run_op_on(cli, kernels, job(outs[1]), None, "chip_smoke_job16_unsharded.log")
+    sharded = run_op_on(cli, kernels, job(outs[0]), shard_mesh(), "chip_smoke_shard4_job16.log")
+    check("Stacking 16 frames with stacking mode 3 " in sharded[0], "shard4_job16: stacking line")
+    sharded_against_unsharded("shard4_job16", fits_mod, size, 16, sharded, unsharded, outs,
+                              "stack_clip", record)
 
 
-def shard4_auto16(cli, fits_mod, kernels, lights, size: int, record) -> None:
-    """The `stack` preset at its defaults on 16 lights + dark (winsorized,
-    goal-seek) with a mesh of 4 shards on cuda:0, then without: the fused
-    executor off under the mesh, both clip percentages on target, a finite
-    output; the share of pixels apart from the unsharded run is printed
-    (the sharded search subsamples per shard and may settle elsewhere)."""
+def shard4_auto(cli, fits_mod, kernels, lights, size: int, record, n: int, mode: int,
+                kernel: str) -> None:
+    """The `stack` preset at its defaults on n lights + dark (goal-seek)
+    with a mesh of 4 shards on cuda:0, then unsharded on the per-frame
+    path, the path a mesh takes: the fused executor off
+    under the mesh, both clip percentages on target, and the checks of
+    sharded_against_unsharded (the sharded search subsamples each shard's
+    part of the unsharded search's pixels, so both take the same steps)."""
     from nightlight_tpu_torch.models.presets import build_command_seq
+
+    name = f"shard4_auto{n}"
 
     def op(out):
         args = cli.build_parser().parse_args(["-out", out, "-dark", "dark.fits", "-jpg", "",
-                                              "-log", "", "stack", *lights[:16]])
+                                              "-log", "", "stack", *lights[:n]])
         cli.apply_command_defaults(args)
         return build_command_seq(args)
 
-    log_s, sec_s, cnt_s, peak_s = run_op_on(cli, kernels, op("auto16_shard.fits"),
-                                            shard_mesh(), "chip_smoke_shard4_auto16.log")
-    log_u, sec_u, cnt_u, peak_u = run_op_on(cli, kernels, op("auto16_plain.fits"), None,
-                                            "chip_smoke_auto16_unsharded.log")
-    shard = check_output(fits_mod, "auto16_shard.fits", size)
-    plain = check_output(fits_mod, "auto16_plain.fits", size)
-    share = pixels_apart(shard, plain) / shard.size
-    notes = [ln for ln in log_s.splitlines() if ln.startswith(("Clipped", "Reached", PER_FRAME))]
-    say(f"shard4_auto16 (16 lights + dark, defaults, {SHARDS} shards on cuda:0): wall "
-        f"{sec_s:.3f} s peak {peak_s:.2f} GiB launches {cnt_s} {notes}; unsharded wall "
-        f"{sec_u:.3f} s peak {peak_u:.2f} GiB launches {cnt_u}; share of pixels apart "
-        f"{share:.6f}")
-    check("Error" not in log_s, "shard4_auto16: error in the log")
+    outs = (f"auto{n}_shard.fits", f"auto{n}_plain.fits")
+    sharded = run_op_on(cli, kernels, op(outs[0]), shard_mesh(), f"chip_smoke_{name}.log")
+    unsharded = run_op_on(cli, kernels, op(outs[1]), None, f"chip_smoke_auto{n}_perframe.log",
+                          per_frame=True)
+    log_s = sharded[0]
+    notes = [ln for ln in log_s.splitlines() if ln.startswith(("Clipped", "Reached", "Step"))]
+    say(f"{name}: {notes}")
     check(f"{PER_FRAME}sharded run (mesh active)); using the per-frame operator path." in log_s,
-          "shard4_auto16: fused-off line missing")
-    check("Stacking 16 frames with stacking mode 3 " in log_s, "shard4_auto16: stacking line")
-    check("Reached 0.50% and 0.50% clipping" in log_s, "shard4_auto16: goal-seek off target")
+          f"{name}: fused-off line missing")
+    check(f"Stacking {n} frames with stacking mode {mode} " in log_s, f"{name}: stacking line")
+    check("Reached 0.50% and 0.50% clipping" in log_s, f"{name}: goal-seek off target")
     clipped = re.findall(r"Clipped low \d+ \(([\d.]+)%\) high \d+ \(([\d.]+)%\)", log_s)
-    check(clipped == [("0.50", "0.50")], f"shard4_auto16: clip line {clipped}")
-    check(bool(np.isfinite(shard).all()), "shard4_auto16: output not finite")
-    check(cnt_s["stack_clip"] > 0 and cnt_s["stack_clip"] % SHARDS == 0,
-          f"shard4_auto16: K1 launches {cnt_s['stack_clip']}")
-    record("shard4_auto16", cnt_s, sec_s, peak_s)
-    record("auto16_unsharded", cnt_u, sec_u, peak_u)
-    for name in ("auto16_shard.fits", "auto16_plain.fits"):
-        os.remove(name)
+    check(clipped == [("0.50", "0.50")], f"{name}: clip line {clipped}")
+    sharded_against_unsharded(name, fits_mod, size, n, sharded, unsharded, outs, kernel, record)
 
 
 def mesh_step16(fits_mod, kernels, lights, size: int, record) -> None:
@@ -1716,7 +1754,8 @@ def main() -> int:
 
         # the device mesh (parallel/mesh.py): 4 shards on cuda:0
         shard4_job16(cli, nlfits, kernels, lights, size, record)
-        shard4_auto16(cli, nlfits, kernels, lights, size, record)
+        shard4_auto(cli, nlfits, kernels, lights, size, record, 16, 3, "stack_clip")
+        shard4_auto(cli, nlfits, kernels, lights, size, record, 30, 5, "stack_linfit")
         mesh_step16(nlfits, kernels, lights, size, record)
         cli_shard(cli, nlfits, kernels, lights, size, record)
         torch.cuda.empty_cache()

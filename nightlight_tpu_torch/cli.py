@@ -2,8 +2,10 @@
 (reference: cmd/nightlight/main.go): the same flags, per-command defaults,
 %auto filename derivation, job-JSON echo and log lines. ``run`` executes a
 JSON job file; ``serve`` starts the REST job server and web UI
-(serve/rest.py). ``-shard`` row-shards the stack over every attached card
-through the port's single-process device mesh (parallel/mesh.py).
+(serve/rest.py). ``-shard`` row-shards every loaded frame over every
+attached card through the port's single-process device mesh
+(parallel/mesh.py): the per-frame operators and the stack run on each
+card's rows.
 
 On a machine with a GPU the pipeline runs on cuda:0, with TF32 disabled for
 matrix products and cuDNN so float32 math stays float32.
@@ -63,8 +65,9 @@ def build_parser() -> argparse.ArgumentParser:
     a("-trace", default="", help="write a torch.profiler trace of the run to this directory"
       " (the analog of the reference's -cpuprofile/-memprofile)")
     a("-shard", action="store_true",
-      help="row-shard frames across all attached devices (parallel.mesh device mesh);"
-      " the stack and its goal-seek then run per device, with copies between cards")
+      help="row-shard frames across all attached devices (parallel.mesh device mesh):"
+      " each frame is loaded by rows onto the cards, calibrate, bad-pixel repair,"
+      " statistics, match, warp and the stack run on each card's rows")
 
     a("-out", default="out.fits", help="save output to file")
     a("-jpg", default="%auto", help="save 8bit preview of output as JPEG")

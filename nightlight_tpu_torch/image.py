@@ -4,6 +4,11 @@ Mirror of nightlight_tpu/image.py: an Image carries its FITS metadata and a
 float32 torch tensor shaped (H, W) for mono images (or (3, H, W) for colour
 cubes) on an explicit device; ``naxisn`` keeps the FITS axis order
 (fastest-varying first: [width, height(, 3)]) for headers and log lines.
+
+Under ``Context.mesh`` ``data`` is a row-sharded value instead
+(parallel/mesh.py RowSharded: one row block per mesh device, with the
+tensor's ``shape``, ``dim()``, ``numel()`` and ``device``, the lead);
+``to_numpy`` gathers it.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import numpy as np
 import torch
 
 from nightlight_tpu_torch.ops.stats import Stats
+from nightlight_tpu_torch.parallel import mesh as pm
 
 
 @dataclass
@@ -49,7 +55,7 @@ class Image:
     bzero: float = 0.0
     bscale: float = 1.0
     naxisn: list = field(default_factory=list)
-    data: Any = None  # torch.Tensor, (H, W) or (C, H, W) float32
+    data: Any = None  # torch.Tensor, (H, W) or (C, H, W) float32; or a RowSharded
     exposure: float = 0.0
     stats: Optional[Stats] = None
     median_diff_stats: Optional[Stats] = None
@@ -121,7 +127,9 @@ class Image:
         self.stats = Stats(data, self.naxisn[0], mode)
 
     def to_numpy(self) -> np.ndarray:
-        return self.data.detach().to("cpu", torch.float32).numpy()
+        """The pixels on the host (a row-sharded image gathered)."""
+        data = pm.gather(self.data, "to_numpy")
+        return data.detach().to("cpu", torch.float32).numpy()
 
 
 def bin_block_mean(d: torch.Tensor, n: int) -> torch.Tensor:
@@ -148,9 +156,21 @@ def bin_block_mean(d: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def bin_nxn(img: Image, n: int) -> Image:
-    """NxN average-pooling downsample (fits.go:163-195)."""
+    """NxN average-pooling downsample (fits.go:163-195); a row-sharded image
+    shard by shard where each shard holds whole blocks, else gathered and
+    placed back."""
     n = int(n)
-    binned = bin_block_mean(img.data, n)
+    d = img.data
+    if isinstance(d, pm.RowSharded):
+        rows = d.shape[-2] // d.mesh.size
+        if not d.replicated and rows % n == 0:
+            # whole blocks in every shard: binned shard by shard
+            shape = (*d.shape[:-2], d.shape[-2] // n, d.shape[-1] // n)
+            binned = pm.map_blocks(lambda b: bin_block_mean(b, n), d, shape=shape)
+        else:
+            binned = pm.place_on_mesh(bin_block_mean(pm.gather(d, "bin"), n), d.mesh)
+    else:
+        binned = bin_block_mean(d, n)
     naxisn = [binned.shape[-1], binned.shape[-2]] + ([binned.shape[0]] if binned.dim() == 3
                                                       else [])
     out = Image.from_naxisn(naxisn, binned, ls_mode=img.stats.mode if img.stats else None)
@@ -163,8 +183,8 @@ def image_from_stars(img: Image, hfr_multiple: float = 2.0) -> Image:
     hfr * hfr_multiple and value mass / (pi radius^2), later stars over
     earlier ones, on a copy of its pixels (fits.go:199-222). Host-side, as
     in the JAX package (nightlight_tpu/image.py image_from_stars): it only
-    serves the -stars debug saves."""
-    res = Image.like(img)
+    serves the -stars debug saves. A row-sharded image's pixels are
+    gathered, and the rendering is one tensor on its lead device."""
     data = np.array(img.to_numpy())
     h, w = img.height, img.width
     stars = img.stars
@@ -179,5 +199,4 @@ def image_from_stars(img: Image, hfr_multiple: float = 2.0) -> Image:
         xs = int(stars.x[k]) + xx[mask]
         inside = (ys >= 0) & (ys < h) & (xs >= 0) & (xs < w)
         data[..., ys[inside], xs[inside]] = color
-    res.set_data(torch.from_numpy(data).to(img.device))
-    return res
+    return Image.like(img, torch.from_numpy(data).to(img.device))

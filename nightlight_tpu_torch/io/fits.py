@@ -10,6 +10,15 @@ byte-swapped and scaled there by torch (decode_raw); the wider types are
 decoded by numpy on the host. read_raw splits reading from decoding for
 the read-ahead loader (io/ingest.py). The writer emits byte-identical
 files to the JAX package's writer.
+
+Given a device mesh (parallel/mesh.py, ``Context.mesh``), a 2-D frame
+whose rows divide the mesh is read row-sharded: its rows are contiguous
+byte ranges of the payload, so each shard's range is copied from the host
+buffer straight to that shard's device and decoded there (the JAX
+package's ``device_put_sharded_rows``); no such frame passes whole through
+the lead device. A float payload, decoded on the host, goes from there to
+the shards (``place_on_mesh``). Any other frame arrives on the lead device,
+and OpLoad places it.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import torch
 
 from nightlight_tpu_torch.image import FITS_BLOCK_SIZE, HEADER_LINE_SIZE, Header, Image
 from nightlight_tpu_torch.ops.stats import Stats
+from nightlight_tpu_torch.parallel import mesh as pm
 
 # Header line grammar, mirroring compileRE (read.go:525-559).
 _WHITE = rb"\s+"
@@ -55,9 +65,12 @@ _BITPIX_DTYPES = {
 
 
 def read_file(file_name: str, id: int = 0, log=None, read_data: bool = True,
-              device="cpu") -> Image:
+              device="cpu", mesh=None) -> Image:
     """Read a FITS (or TIFF) image from a file (read.go:34-73), its pixels
-    on `device`."""
+    on `device`. Given `mesh`, a FITS frame that the mesh shards by rows
+    has each shard's rows uploaded straight to its device; what else the
+    mesh places (a TIFF, integer rows that do not divide) arrives on
+    `device` for the caller to place (OpLoad)."""
     lower = file_name.lower()
     if lower.endswith((".tif", ".tiff")):
         from nightlight_tpu_torch.io.tiff import read_tiff
@@ -66,11 +79,12 @@ def read_file(file_name: str, id: int = 0, log=None, read_data: bool = True,
     img = Image(id=id, file_name=file_name)
     opener = gzip.open if lower.endswith((".gz", ".gzip")) else open
     with opener(file_name, "rb") as f:
-        read(img, f, read_data=read_data, log=log, device=device)
+        read(img, f, read_data=read_data, log=log, device=device, mesh=mesh)
     return img
 
 
-def read(img: Image, f: BinaryIO, read_data: bool = True, log=None, device="cpu") -> Image:
+def read(img: Image, f: BinaryIO, read_data: bool = True, log=None, device="cpu",
+         mesh=None) -> Image:
     """Read a FITS stream into an Image (read.go:94-142)."""
     log = log or sys.stdout
     _read_header(img.header, f, img.id, log)
@@ -98,7 +112,7 @@ def read(img: Image, f: BinaryIO, read_data: bool = True, log=None, device="cpu"
 
     if not read_data:
         return img
-    return _read_payload(img, f, pixels, log, device)
+    return _read_payload(img, f, pixels, log, device, mesh)
 
 
 def _pop_int(h: Header, key: str, id: int) -> int:
@@ -163,20 +177,26 @@ def _read_line(h: Header, m: re.Match) -> None:
         h.dates[key] = g["d"].decode("ascii", "replace")
 
 
-def _read_payload(img: Image, f: BinaryIO, pixels: int, log, device) -> Image:
+def _read_payload(img: Image, f: BinaryIO, pixels: int, log, device, mesh=None) -> Image:
     """Decode the payload to float32 (read.go:145-443)."""
     dtype = _payload_dtype(img, log)
     if img.bitpix in (8, 16):
-        buf = np.empty(pixels * dtype.itemsize, dtype=np.uint8)
-        _read_into(f, buf, img.id)
-        return attach_raw(img, torch.from_numpy(buf).to(device))
+        buf = torch.from_numpy(np.empty(pixels * dtype.itemsize, dtype=np.uint8))
+        _read_into(f, buf.numpy(), img.id)
+        slices = raw_row_slices(img, buf, mesh)
+        if slices is not None:
+            return attach_raw_sharded(img, [pm._to(s, dev) for s, dev
+                                            in zip(slices, mesh.devices)], mesh)
+        return attach_raw(img, buf.to(device))
 
     raw = f.read(pixels * dtype.itemsize)
     if len(raw) < pixels * dtype.itemsize:
         raise ValueError(f"{img.id}: unexpected EOF in FITS data")
     data, vmin, vmean, vmax = decode_payload(raw, dtype, pixels, img.bscale, img.bzero)
     img.bzero, img.bscale = 0.0, 1.0  # folded in (read.go:205)
-    img.data = torch.from_numpy(data.reshape(tuple(reversed(img.naxisn)))).to(device)
+    host = torch.from_numpy(data.reshape(tuple(reversed(img.naxisn))))
+    # under a mesh each shard's rows go from the host to their device
+    img.data = host.to(device) if mesh is None else pm.place_on_mesh(host, mesh)
     img.stats = Stats.with_mmm(img.data, img.naxisn[0], vmin, vmax, vmean)
     return img
 
@@ -249,6 +269,28 @@ def attach_raw(img: Image, raw: torch.Tensor) -> Image:
     img.data = decode_raw(raw, img.bitpix, img.bscale, img.bzero).reshape(shape)
     img.bzero, img.bscale = 0.0, 1.0
     img.stats = Stats(img.data, img.naxisn[0])
+    return img
+
+
+def raw_row_slices(img: Image, raw: torch.Tensor, mesh):
+    """The byte ranges of a raw 2-D payload that hold each mesh shard's rows
+    (views of `raw`, in mesh order), or None without a mesh, for a cube, or
+    where the rows do not divide the mesh."""
+    if mesh is None or len(img.naxisn) != 2 or not pm.divides(mesh, img.naxisn[::-1]):
+        return None
+    step = raw.numel() // mesh.size
+    return [raw[k * step:(k + 1) * step] for k in range(mesh.size)]
+
+
+def attach_raw_sharded(img: Image, raws: list, mesh) -> Image:
+    """attach_raw of a 2-D frame whose shards' raw rows are each on their
+    mesh device already: each decoded there, img.data a RowSharded."""
+    w, h = img.naxisn
+    rows = h // mesh.size
+    blocks = [decode_raw(r, img.bitpix, img.bscale, img.bzero).reshape(rows, w) for r in raws]
+    img.data = pm.RowSharded(mesh, (h, w), blocks)
+    img.bzero, img.bscale = 0.0, 1.0
+    img.stats = Stats(img.data, w)
     return img
 
 

@@ -16,6 +16,15 @@ the worker and copied to the device by the consumer, as the JAX package
 does. On the CPU device the same threads read in the same order, into
 plain host memory, with no stream.
 
+Under a device mesh (parallel/mesh.py, ``Context.mesh``) a 2-D frame whose
+rows divide the mesh is uploaded row-sharded: a worker copies each shard's
+byte range of the pinned buffer to that shard's device, `non_blocking` on
+a side stream of that device, and synchronises every side stream it used
+before the buffer goes back to the pool; `get` decodes each shard on its
+device (io/fits.attach_raw_sharded), the JAX package's
+``device_put_sharded_rows``. A host-decoded frame goes from the host to
+the shards; any other frame is placed by OpLoad.
+
 Left out, with the TPU transport they served (ROADMAP.md, North star):
 groups of frames in one transfer, the bit-packed wire format
 (io/pack.py), the EMA of the wire rate that gated it, and the `Ingest:`
@@ -136,8 +145,9 @@ class ReadAheadLoader:
 
     def __init__(self, specs: list[tuple[int, str]], log, device, frame_bytes: int = 0,
                  window_bytes: int | None = WINDOW_BYTES, lookahead: int | None = None,
-                 depth: int = DEPTH):
+                 depth: int = DEPTH, mesh=None):
         self.device = torch.device(device)
+        self._mesh = mesh
         self._log = log
         self._ids = {name: id_ for id_, name in specs}
         self._spec_order = [name for _, name in specs]
@@ -160,14 +170,19 @@ class ReadAheadLoader:
         self.inline_reads = 0  # frames the consumer had to read itself
         self.wait_seconds = 0.0  # the consumer's waits for a worker's read
         self._stream = self._pool = None
+        self._streams = {}  # a side stream per CUDA device copied to
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(device=self.device)
+            self._streams[self.device] = self._stream
+            for dev in (mesh.devices if mesh is not None else ()):
+                if dev.type == "cuda" and dev not in self._streams:
+                    self._streams[dev] = torch.cuda.Stream(device=dev)
             self._pool = _PinnedPool(depth + 1)
         self._threads = [threading.Thread(target=self._work, daemon=True,
                                           name=f"read-ahead-{i}") for i in range(depth)]
 
     @classmethod
-    def try_create(cls, specs: list[tuple[int, str]], log, device):
+    def try_create(cls, specs: list[tuple[int, str]], log, device, mesh=None):
         """A loader with the byte window when the first file's header says
         the raw-upload path applies (BITPIX 8/16, at least 4 frames, not
         TIFF), else None: BulkUploader.try_create's gates."""
@@ -185,7 +200,7 @@ class ReadAheadLoader:
         if hdr.bitpix not in (8, 16):
             return None
         frame_bytes = math.prod(hdr.naxisn) * _BITPIX_DTYPES[hdr.bitpix].itemsize
-        return cls(specs, log, device, frame_bytes=frame_bytes)
+        return cls(specs, log, device, frame_bytes=frame_bytes, mesh=mesh)
 
     @property
     def pinned_buffers(self) -> int:
@@ -249,7 +264,7 @@ class ReadAheadLoader:
                     self.inline_reads += 1
         if not managed:
             return read_file(name, id=self._ids.get(name, 0), log=self._log,
-                             device=self.device)
+                             device=self.device, mesh=self._mesh)
         if inline:
             self._read(name, fr, inline=True)
         t0 = time.perf_counter()
@@ -345,7 +360,7 @@ class ReadAheadLoader:
     def _read(self, name: str, fr: _Frame, inline: bool = False) -> None:
         """Read one frame (on a worker, or inline on the consumer); any
         error is handed to the consumer's get."""
-        from nightlight_tpu_torch.io.fits import read_raw
+        from nightlight_tpu_torch.io.fits import raw_row_slices, read_raw
 
         t0 = time.perf_counter()
         held = []
@@ -361,12 +376,16 @@ class ReadAheadLoader:
             else:
                 fr.img, raw = read_raw(name, id=self._ids[name], log=log, alloc=pinned)
                 if raw is not None:
-                    with torch.cuda.stream(self._stream):
-                        fr.raw = torch.empty(raw.numel(), dtype=torch.uint8, device=self.device)
-                        fr.raw.copy_(raw, non_blocking=True)
-                    # the copy has landed: the pinned buffer is free again,
-                    # and the consumer's stream needs no wait on it
-                    self._stream.synchronize()
+                    slices = raw_row_slices(fr.img, raw, self._mesh)
+                    if slices is None:
+                        fr.raw = self._upload(raw, self.device)
+                    else:  # each shard's rows to its device
+                        fr.raw = [self._upload(sl, dev)
+                                  for sl, dev in zip(slices, self._mesh.devices)]
+                    # the copies have landed: the pinned buffer is free
+                    # again, and the consumer's streams need no wait on it
+                    for stream in self._streams.values():
+                        stream.synchronize()
         except BaseException as e:  # noqa: BLE001 - raised by get for this frame
             fr.error = e
         finally:
@@ -377,23 +396,43 @@ class ReadAheadLoader:
                 if not inline:
                     self.read_seconds += time.perf_counter() - t0
                 if fr.admitted and fr.error is None:  # the window counts what was read
-                    held_bytes = (fr.raw.numel() if fr.raw is not None
+                    held_bytes = (sum(r.numel() for r in fr.raw) if isinstance(fr.raw, list)
+                                  else fr.raw.numel() if fr.raw is not None
                                   else fr.img.data.numel() * fr.img.data.element_size())
                     self._ahead_bytes += held_bytes - fr.budget
                     fr.budget = held_bytes
             fr.done.set()
 
+    def _upload(self, raw: torch.Tensor, device: torch.device) -> torch.Tensor:
+        """A copy of pinned `raw` on `device`, made on that device's side
+        stream (not yet synchronised)."""
+        with torch.cuda.stream(self._streams[device]):
+            out = torch.empty(raw.numel(), dtype=torch.uint8, device=device)
+            out.copy_(raw, non_blocking=True)
+        return out
+
     def _finish(self, fr: _Frame):
-        """Decode a raw payload on the consumer's stream, or move a host-
-        decoded image to the device."""
-        from nightlight_tpu_torch.io.fits import attach_raw
+        """Decode a raw payload on the consumer's stream (each shard's on
+        its device's), or move a host-decoded image to the device (or its
+        shards to theirs)."""
+        from nightlight_tpu_torch.io.fits import attach_raw, attach_raw_sharded, raw_row_slices
+        from nightlight_tpu_torch.parallel.mesh import place_on_mesh
 
         img = fr.img
-        if fr.raw is not None:
+        raws = fr.raw
+        if raws is not None and not isinstance(raws, list) and self._stream is None:
+            # on the CPU the shards are views of the host payload
+            raws = raw_row_slices(img, raws, self._mesh) or raws
+        if isinstance(raws, list):
+            for r in raws if self._stream is not None else ():
+                r.record_stream(torch.cuda.current_stream(r.device))  # side-stream allocations
+            return attach_raw_sharded(img, raws, self._mesh)
+        if raws is not None:
             if self._stream is not None:  # allocated on the side stream
-                fr.raw.record_stream(torch.cuda.current_stream(self.device))
-            return attach_raw(img, fr.raw)
-        img.data = img.data.to(self.device)
+                raws.record_stream(torch.cuda.current_stream(self.device))
+            return attach_raw(img, raws)  # OpLoad places it under a mesh
+        img.data = (img.data.to(self.device) if self._mesh is None
+                    else place_on_mesh(img.data, self._mesh))
         img.stats.replace_data(img.data)
         return img
 

@@ -16,6 +16,8 @@ DETECT_CHUNK-frame slices.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -151,6 +153,22 @@ def fused_batch_eligible(images, c) -> tuple[bool, str | None]:
     if not all(f.data.dim() == 2 and f.data.shape == shape0 for f in images):
         return False, "non-uniform or non-mono frame shapes"
     return True, None
+
+
+@contextlib.contextmanager
+def per_frame_path(active: bool = True, reason: str = "per-frame comparison"):
+    """While active, every batch is found ineligible for the fused executor
+    (`reason`), so an unsharded run takes the per-frame operator path that a
+    mesh takes, after the same loads and batch plan: the unsharded side of a
+    sharded-vs-unsharded comparison."""
+    global fused_batch_eligible
+    eligible = fused_batch_eligible
+    if active:
+        fused_batch_eligible = lambda images, c: (False, reason)
+    try:
+        yield
+    finally:
+        fused_batch_eligible = eligible
 
 
 def run_fused_preprocess(images, c, spec) -> list:

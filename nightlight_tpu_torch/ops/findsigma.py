@@ -144,21 +144,26 @@ def _newton_search(clips_at, sub_total, target_l, target_h, max_iter):
 
 def _evaluator(frames, mode, weights, ref_frame_loc, subsample, mesh):
     """(clips_at, sub_total) of one search: over the whole block, or with
-    a mesh over each shard's block. The sharded subsample is per shard
-    (stride 17 over each shard's flattened block, as shard_map hands JAX's
-    search the local block), and its sample total is the GLOBAL total as
-    float32 times the local ratio, rounded to float32 (JAX's traced
-    float32 arithmetic)."""
+    a mesh over each shard's block. The sharded subsample is each shard's
+    part of the global stride-17 pattern (the pixels whose flat index in
+    the whole frame divides by 17), so the shards together count the
+    unsharded subsample's clips and a sharded search takes the unsharded
+    one's steps; the sample total is the unsharded one. (JAX's shard_map
+    hands its search the local block, which subsamples other pixels than
+    its unsharded search.)"""
     total = frames.numel()
+    sub_total = float(total)
     if mesh is None:
-        sub, sub_total = _search_subsample(frames, total) if subsample else (frames,
-                                                                             float(total))
-        return _clips_fn([sub], None, mode, weights, ref_frame_loc), sub_total
-    subs, sub_total = pm.shard_rows(mesh, frames).blocks, f32(total)
-    if subsample:
-        pairs = [_search_subsample(b, 1.0) for b in subs]
-        subs = [sub for sub, _ in pairs]
-        sub_total = f32(f32(total) * f32(pairs[0][1]))
+        if subsample:
+            frames, sub_total = _search_subsample(frames, total)
+        return _clips_fn([frames], None, mode, weights, ref_frame_loc), sub_total
+    subs = pm.shard_rows(mesh, frames).blocks
+    p = math.prod(frames.shape[1:])
+    if subsample and p >= 4 * _SEARCH_STRIDE:
+        local = subs[0][0].numel()
+        subs = [b.reshape(b.shape[0], -1)[:, (-k * local) % _SEARCH_STRIDE::_SEARCH_STRIDE]
+                .contiguous() for k, b in enumerate(subs)]
+        sub_total = total * (-(-p // _SEARCH_STRIDE) / p)
     return _clips_fn(subs, mesh, mode, weights, ref_frame_loc), sub_total
 
 

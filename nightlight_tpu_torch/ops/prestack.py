@@ -6,7 +6,9 @@ network (median3x3.go:85-110), the bad-pixel map with median repair
 (badpixels_bayer.go) and the bilinear one-channel debayer (debayer.go).
 
 The mono functions work on (H, W) images and on (N, H, W) frame batches;
-the bayer ones on one (H, W) mosaic.
+the bayer ones on one (H, W) mosaic. bad_pixel_repair_sharded and
+debayer_sharded take one row-sharded frame (parallel/mesh.py RowSharded)
+and work on each shard's rows with its neighbours' halo rows.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from nightlight_tpu_torch.ops.pixelmath import fma32
+from nightlight_tpu_torch.parallel import mesh as pm
 
 
 def subtract(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -66,17 +69,53 @@ def median_filter_3x3(img: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _std(diff: torch.Tensor) -> torch.Tensor:
-    """Population stddev over the last two axes, accumulated in float64 and
-    rounded once to float32."""
-    d = diff.reshape(*diff.shape[:-2], -1).to(torch.float64)
-    return d.std(-1, correction=0).to(torch.float32)
+def _total(values, device: torch.device) -> torch.Tensor:
+    """Per-part partials (a frame's one part, or its shards' in mesh order)
+    added on `device`."""
+    total = None
+    for v in values:
+        v = pm._to(v, device)
+        total = v if total is None else total + v
+    return total
+
+
+def _std(diffs, n: int, device: torch.device) -> torch.Tensor:
+    """Population stddev over the last two axes of a frame held in parts
+    (row blocks): two passes of float64 sums (the mean, then the squared
+    deviations), each part summed on its device and the partials added on
+    `device`, rounded once to float32."""
+    mean = _total([d.to(torch.float64).sum(dim=(-2, -1)) for d in diffs], device) / n
+
+    def dev2(d):
+        e = d.to(torch.float64) - pm._to(mean, d.device)[..., None, None]
+        return (e * e).sum(dim=(-2, -1))
+
+    return torch.sqrt(_total([dev2(d) for d in diffs], device) / n).to(torch.float32)
 
 
 def bad_pixel_stats(img: torch.Tensor):
     """Difference from the local 3x3 median and its stddev (badpixels.go:32-41)."""
     diff = img - median_filter_3x3(img)
-    return diff, _std(diff)
+    return diff, _std([diff], img.shape[-2] * img.shape[-1], img.device)
+
+
+def _repair_parts(parts, n: int, device, sigma_low: float, sigma_high: float):
+    """The bad-pixel policy over a frame held in parts, each (rows, their
+    3x3 medians): the difference map's stddev from the parts' float64 sums
+    (_std), the outliers beyond sigma times it replaced by the median.
+    Returns (repaired parts, num_bad as int64, diff_stddev), the last two
+    added up on `device`."""
+    diffs = [b - m for b, m in parts]
+    std = _std(diffs, n, device)
+    repaired, counts = [], []
+    for (b, m), d in zip(parts, diffs):
+        s = pm._to(std, b.device)[..., None, None]
+        slo = torch.tensor(float(sigma_low), dtype=torch.float32, device=b.device)
+        shi = torch.tensor(float(sigma_high), dtype=torch.float32, device=b.device)
+        bad = (d < -slo * s) | (d > shi * s)
+        repaired.append(torch.where(bad, m, b))
+        counts.append(bad.sum(dim=(-2, -1)).to(torch.int64))
+    return repaired, _total(counts, device), std
 
 
 def bad_pixel_repair(img: torch.Tensor, sigma_low: float, sigma_high: float):
@@ -84,15 +123,23 @@ def bad_pixel_repair(img: torch.Tensor, sigma_low: float, sigma_high: float):
     the stddev of the median-difference map with that median
     (badpixels.go:32-104). Returns (repaired, num_bad, diff_stddev), the
     last two per frame for a batch."""
-    med = median_filter_3x3(img)
-    diff = img - med
-    std = _std(diff)
-    s = std[..., None, None]
-    slo = torch.tensor(float(sigma_low), dtype=torch.float32, device=img.device)
-    shi = torch.tensor(float(sigma_high), dtype=torch.float32, device=img.device)
-    bad = (diff < -slo * s) | (diff > shi * s)
-    repaired = torch.where(bad, med, img)
-    return repaired, bad.sum(dim=(-2, -1)), std
+    (repaired,), n_bad, std = _repair_parts([(img, median_filter_3x3(img))],
+                                            img.shape[-2] * img.shape[-1], img.device,
+                                            sigma_low, sigma_high)
+    return repaired, n_bad, std
+
+
+def bad_pixel_repair_sharded(x, sigma_low: float, sigma_high: float):
+    """bad_pixel_repair of one row-sharded (H, W) frame, shard by shard
+    (_repair_parts over the shards): each shard's 3x3 median takes one halo
+    row from each neighbour, and the frame's first and last rows (and its
+    outer columns) pass through as unsharded. Returns (repaired RowSharded,
+    n_bad, diff_stddev), the last two 0-d tensors on the lead device."""
+    meds = [median_filter_3x3(ext)[..., top:top + b.shape[-2], :]
+            for (ext, top, _), b in zip(pm.halo(x, 1, 1), x.blocks)]
+    repaired, n_bad, std = _repair_parts(list(zip(x.blocks, meds)), x.numel(), x.mesh.lead,
+                                         sigma_low, sigma_high)
+    return pm.RowSharded(x.mesh, x.shape, repaired, x.replicated), n_bad, std
 
 
 # ---------------------------------------------------------------------------
@@ -110,6 +157,28 @@ def cfa_offsets(cfa: str) -> tuple[int, int]:
         return _CFA_OFFSETS[cfa.upper()]
     except KeyError:
         raise ValueError(f"Unknown CFA value {cfa}") from None
+
+
+def debayer_sharded(x, channel: str, cfa: str):
+    """debayer_bilinear of one row-sharded (H, W) mosaic, shard by shard,
+    where the output keeps the input's rows (a CFA row offset of 0, an even
+    row count in each shard): each shard debayers its rows with two halo
+    rows from each neighbour (whole CFA cells, so the pattern's phase
+    holds) and keeps its own output rows, which read no further than one
+    row across. Otherwise (or for a replicated frame) the mosaic is
+    debayered whole on the lead and the result placed by the mesh's rule.
+    Returns a RowSharded image."""
+    _, yo = cfa_offsets(cfa)
+    rows = x.shape[-2] // x.mesh.size
+    if x.replicated or yo != 0 or rows % 2 != 0:
+        # the output rows do not line up with the input shards
+        return pm.place_on_mesh(debayer_bilinear(pm.gather(x, "debayer"), channel, cfa),
+                                x.mesh)
+    blocks = []
+    for (ext, top, _), b in zip(pm.halo(x, 2, 2), x.blocks):
+        out = debayer_bilinear(ext, channel, cfa)
+        blocks.append(out[top:top + rows].contiguous())
+    return pm.RowSharded(x.mesh, (x.shape[-2], blocks[0].shape[-1]), blocks)
 
 
 def debayer_bilinear(img: torch.Tensor, channel: str, cfa: str) -> torch.Tensor:
@@ -280,13 +349,39 @@ _G_OFFSETS = [(-2, 0), (-1, -1), (-1, 1), (0, -2), (0, 0), (0, 2), (1, -1), (1, 
 _RB_OFFSETS = [(dy, dx) for dy in (-2, 0, 2) for dx in (-2, 0, 2)]
 
 
-def _bayer_channel_correct(img, xo: int, yo: int, green: bool, sigma_low: float,
-                           sigma_high: float):
-    """Shared bayer cosmetic-correction core (badpixels_bayer.go:49-61): the
-    same-colour neighbourhood median at every pixel, the mean and stddev of
+def _bayer_correct_parts(parts, device, sigma_low: float, sigma_high: float):
+    """Shared bayer cosmetic-correction core (badpixels_bayer.go:49-61) over
+    a mosaic held in parts, each (rows, their same-colour neighbourhood
+    medians, the mask of the channel's positions): the mean and stddev of
     delta = data - median over the channel's positions, and the channel's
-    outliers replaced by the median. The two sums accumulate in float64 and
-    round once to float32. Returns (image, count)."""
+    outliers replaced by the median. The two sums accumulate in float64
+    per part, are added on `device` and round once to float32. Returns
+    (corrected parts, count on `device`)."""
+    deltas = [b - med for b, med, _ in parts]
+    cnt = _total([chan.sum() for _, _, chan in parts], device).clamp(min=1).to(torch.float32)
+
+    def chan_sum(fn):
+        return _total([torch.where(chan, fn(d), torch.zeros((), device=d.device))
+                       .to(torch.float64).sum() for (_, _, chan), d in zip(parts, deltas)],
+                      device).to(torch.float32)
+
+    mean = chan_sum(lambda d: d) / cnt
+    var = chan_sum(lambda d: (d - pm._to(mean, d.device)) ** 2) / cnt
+    std = torch.sqrt(var)
+    out, counts = [], []
+    for (b, med, chan), d in zip(parts, deltas):
+        s = pm._to(std, b.device)
+        slo = torch.tensor(float(sigma_low), dtype=torch.float32, device=b.device)
+        shi = torch.tensor(float(sigma_high), dtype=torch.float32, device=b.device)
+        outlier = chan & ((d < -slo * s) | (d > shi * s))
+        out.append(torch.where(outlier, med, b))
+        counts.append(outlier.sum())
+    return out, _total(counts, device)
+
+
+def _bayer_median_chan(img, xo: int, yo: int, green: bool):
+    """The same-colour neighbourhood median at every pixel of a mosaic and
+    the mask of the channel's positions."""
     h, w = img.shape
     dev = img.device
     offsets = _G_OFFSETS if green else _RB_OFFSETS
@@ -305,31 +400,50 @@ def _bayer_channel_correct(img, xo: int, yo: int, green: bool, sigma_low: float,
         chan = chan & (yy >= yo) & (xx >= xo)
     else:
         chan = ((yy - yo) % 2 == 0) & ((xx - xo) % 2 == 0) & (yy >= yo) & (xx >= xo)
-    chan = chan.expand(h, w)
+    return med, chan.expand(h, w)
 
-    delta = img - med
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    cnt = chan.sum().clamp(min=1).to(torch.float32)
-    mean = torch.where(chan, delta, zero).to(torch.float64).sum().to(torch.float32) / cnt
-    dev2 = (delta - mean) ** 2
-    var = torch.where(chan, dev2, zero).to(torch.float64).sum().to(torch.float32) / cnt
-    std = torch.sqrt(var)
-    slo = torch.tensor(float(sigma_low), dtype=torch.float32, device=dev)
-    shi = torch.tensor(float(sigma_high), dtype=torch.float32, device=dev)
-    outlier = chan & ((delta < -slo * std) | (delta > shi * std))
-    return torch.where(outlier, med, img), outlier.sum()
+
+def _bayer_channel(channel: str, cfa: str):
+    """(xo, yo, green) of the debayer channel's positions."""
+    xo, yo = cfa_offsets(cfa)
+    ch = channel.upper()
+    if ch == "R":
+        return xo, yo, False
+    if ch == "G":
+        return xo, yo, True
+    if ch == "B":
+        return xo + 1, yo + 1, False
+    raise ValueError(f"Unknown debayering value {channel}")
 
 
 def cosmetic_correction_bayer(img: torch.Tensor, channel: str, cfa: str,
                               sigma_low: float, sigma_high: float):
     """CFA-aware cosmetic correction of the debayer channel's positions
     (badpixels_bayer.go:26-46). Returns (corrected image, number removed)."""
-    xo, yo = cfa_offsets(cfa)
-    ch = channel.upper()
-    if ch == "R":
-        return _bayer_channel_correct(img, xo, yo, False, sigma_low, sigma_high)
-    if ch == "G":
-        return _bayer_channel_correct(img, xo, yo, True, sigma_low, sigma_high)
-    if ch == "B":
-        return _bayer_channel_correct(img, xo + 1, yo + 1, False, sigma_low, sigma_high)
-    raise ValueError(f"Unknown debayering value {channel}")
+    xo, yo, green = _bayer_channel(channel, cfa)
+    (out,), n = _bayer_correct_parts([(img, *_bayer_median_chan(img, xo, yo, green))],
+                                     img.device, sigma_low, sigma_high)
+    return out, n
+
+
+def cosmetic_correction_bayer_sharded(x, channel: str, cfa: str, sigma_low: float,
+                                      sigma_high: float):
+    """cosmetic_correction_bayer of one row-sharded mosaic, shard by shard,
+    where each shard's row count is even (whole CFA cells): the medians
+    from two halo rows of each neighbour, the channel's mean and variance
+    of the differences summed per shard in float64 (the unsharded sums
+    accumulate in float64 too), the count an int64 sum. Otherwise the
+    mosaic is corrected whole on the lead and placed back. Returns
+    (RowSharded image, number removed on the lead device)."""
+    xo, yo, green = _bayer_channel(channel, cfa)
+    rows = x.shape[-2] // x.mesh.size
+    if x.replicated or rows % 2 != 0:
+        out, n = cosmetic_correction_bayer(pm.gather(x, "bayer"), channel, cfa, sigma_low,
+                                           sigma_high)
+        return pm.place_on_mesh(out, x.mesh), n
+    parts = []
+    for (ext, top, _), b in zip(pm.halo(x, 2, 2), x.blocks):
+        med, chan = _bayer_median_chan(ext, xo, yo, green)
+        parts.append((b, med[top:top + rows], chan[top:top + rows]))
+    blocks, n = _bayer_correct_parts(parts, x.mesh.lead, sigma_low, sigma_high)
+    return pm.RowSharded(x.mesh, x.shape, blocks), n

@@ -13,6 +13,14 @@ batched over frames: a (B, P) block of flattened frames gives (B,)
 locations and scales, each frame's clip loop freezing once it converges, as
 a vmapped ``lax.while_loop`` does. The others serve the per-frame operator
 path, one image at a time.
+
+A Stats object may also hold a row-sharded image (parallel/mesh.py
+RowSharded, under ``Context.mesh``): min and max are exact reductions of the
+shards' extremes, the mean and the stddev come from per-shard float64 sums
+(the unsharded code accumulates in float64 too), the sampled estimators
+draw the same indices and gather them from their shards in draw order
+(``take_flat``), and the histogram is the sum of per-shard counts. IKSS
+(``-lsEst 2``) and the noise estimate run on the gathered image.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import numpy as np
 import torch
 
 from nightlight_tpu_torch.ops import jaxrand
+from nightlight_tpu_torch.parallel import mesh as pm
 
 NUM_SAMPLES = 128 * 1024
 QN_SCALE = 2.21914
@@ -51,7 +60,11 @@ class LSEstimatorMode(IntEnum):
 def min_mean_max(data: torch.Tensor):
     """Min, mean and max over the LAST axis of a flattened (..., P) block,
     as float32 tensors. The mean accumulates in float64 and rounds once to
-    float32."""
+    float32. A RowSharded image gives its three over every pixel, on the
+    lead device."""
+    if isinstance(data, pm.RowSharded):
+        mn, mx = pm.min_max(data)
+        return mn, (pm.sum64(data) / data.numel()).to(torch.float32), mx
     flat = data.reshape(*data.shape[:-1], -1) if data.dim() > 1 else data
     mn = flat.amin(-1)
     mx = flat.amax(-1)
@@ -108,10 +121,20 @@ def _scmq_draws(p: int, num_samples: int, max_iter: int, seed: int = 0):
     return idx, shift0, loop, final
 
 
-def _sample(flat: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
+def _sample(flat, idx: np.ndarray) -> torch.Tensor:
     """The estimator's sample (with replacement) of each row of (B, P) at
-    the indices JAX's randint drew (stats.go:336-345)."""
+    the indices JAX's randint drew (stats.go:336-345); of a RowSharded
+    image, its (1, S) sample gathered from the shards in draw order."""
+    if isinstance(flat, pm.RowSharded):
+        return pm.take_flat(flat, idx)[None]
     return flat[:, torch.tensor(idx, dtype=torch.int64, device=flat.device)]
+
+
+def _rows_pixels(flat) -> tuple[int, int]:
+    """(B, P) of a (B, P) block; (1, pixels) of a RowSharded image."""
+    if isinstance(flat, pm.RowSharded):
+        return 1, flat.numel()
+    return flat.shape
 
 
 def _qn_diffs_roll(sample, mask, shifts):
@@ -134,12 +157,12 @@ def sigma_clipped_median_qn(flat: torch.Tensor, sigma_low: float = 2.0,
     (B, P) block (stats.go:477-499). Keeps the reference's quirk of using
     sigma_low for both bounds. epsilon is a scalar or a (B,) tensor; the
     draws are those of the JAX package's key PRNGKey(seed). Returns ((B,)
-    location, (B,) scale), float32."""
-    if flat.dim() == 1:
+    location, (B,) scale), float32. A RowSharded image is one row."""
+    if not isinstance(flat, pm.RowSharded) and flat.dim() == 1:
         loc, scale = sigma_clipped_median_qn(flat[None], sigma_low, epsilon,
                                              num_samples, max_iter, seed)
         return loc[0], scale[0]
-    b, p = flat.shape
+    b, p = _rows_pixels(flat)
     dev = flat.device
     idx, shift0, loop_shifts, shift_final = _scmq_draws(p, num_samples, max_iter, seed)
     sr = _sample(flat, idx)
@@ -197,19 +220,24 @@ def _sample_idx(p: int, num_samples: int, seed: int) -> np.ndarray:
     return idx
 
 
+def _sample1(flat, idx: np.ndarray) -> torch.Tensor:
+    """The 1-D sample of a flat image or of a RowSharded one."""
+    return _sample(flat if isinstance(flat, pm.RowSharded) else flat[None], idx)[0]
+
+
 def fast_approx_median(flat: torch.Tensor, num_samples: int = NUM_SAMPLES) -> torch.Tensor:
     """Sampled median of a flat image (stats.go:336-345), the sample drawn
     from PRNGKey(0) as the JAX package's Stats does."""
-    idx = _sample_idx(flat.shape[0], num_samples, 0)
-    return median_sorted(torch.sort(_sample(flat[None], idx)[0]).values)
+    idx = _sample_idx(flat.numel(), num_samples, 0)
+    return median_sorted(torch.sort(_sample1(flat, idx)).values)
 
 
 def fast_approx_mad(flat: torch.Tensor, location: torch.Tensor,
                     num_samples: int = NUM_SAMPLES) -> torch.Tensor:
     """Sampled median absolute deviation about `location`, Gaussian-normalised
     (stats.go:401-410), the sample drawn from PRNGKey(1)."""
-    idx = _sample_idx(flat.shape[0], num_samples, 1)
-    s = (_sample(flat[None], idx)[0] - location).abs()
+    idx = _sample_idx(flat.numel(), num_samples, 1)
+    s = (_sample1(flat, idx) - location).abs()
     return median_sorted(torch.sort(s).values) * MAD_SCALE
 
 
@@ -289,7 +317,11 @@ def histogram(flat: torch.Tensor, vmin: torch.Tensor, vmax: torch.Tensor,
               num_bins: int) -> torch.Tensor:
     """Histogram with the reference's rounding bin map (stats.go:649-654,
     histogram.go:33-42): bin = int((d - min) * (bins-1)/(max-min) + 0.5),
-    clamped into range. Returns int64 counts."""
+    clamped into range. Returns int64 counts; of a RowSharded image, the
+    per-shard counts summed on the lead device."""
+    if isinstance(flat, pm.RowSharded):
+        return pm.psum([histogram(b, vmin.to(b.device), vmax.to(b.device), num_bins)
+                        for b in flat.blocks], flat.mesh)
     value_to_bin = (num_bins - 1) / (vmax - vmin)
     bins = ((flat - vmin) * value_to_bin + 0.5).to(torch.int32).clamp(0, num_bins - 1)
     return torch.bincount(bins.reshape(-1).to(torch.int64), minlength=num_bins)
@@ -333,6 +365,24 @@ def estimate_noise(img: torch.Tensor) -> torch.Tensor:
     h, w = img.shape
     factor = math.sqrt(0.5 * math.pi) / (6.0 * (w - 2) * (h - 2))
     return conv.abs().sum() * factor
+
+
+def _stddev_about(flat, mean: float) -> torch.Tensor:
+    """Population stddev of a flat image (or a RowSharded one) about the
+    float32 `mean`: the squared float32 differences summed in float64 (per
+    shard, the partials added on the lead), divided by the count, rounded
+    once to float32 (stats.go:280-287)."""
+    n = flat.numel()
+    if isinstance(flat, pm.RowSharded):
+        def sq(b):
+            d = b - torch.tensor(mean, dtype=torch.float32, device=b.device)
+            return d * d
+
+        var = pm.sum64(flat, sq) / n
+    else:
+        d = flat - torch.tensor(mean, dtype=torch.float32, device=flat.device)
+        var = (d * d).to(torch.float64).sum() / n
+    return torch.sqrt(var.to(torch.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -400,6 +450,8 @@ class Stats:
     def _flat(self):
         if self._data is None:
             raise ValueError("cannot calculate stats on freed data")
+        if isinstance(self._data, pm.RowSharded):
+            return self._data  # the estimators take it as one flat image
         return self._data.reshape(-1)
 
     def update_cached_with(self, multiplier: float, offset: float) -> None:
@@ -437,10 +489,7 @@ class Stats:
     def stddev(self) -> float:
         if not self._have_stddev:
             self._ensure_mmm()
-            flat = self._flat()
-            mean = torch.tensor(self._mean, dtype=torch.float32, device=flat.device)
-            diff = flat - mean
-            self._stddev = float(torch.sqrt(torch.mean(diff * diff)))
+            self._stddev = float(_stddev_about(self._flat(), self._mean))
             self._have_stddev = True
         return self._stddev
 
@@ -459,7 +508,9 @@ class Stats:
     @property
     def noise(self) -> float:
         if not self._have_noise:
-            d = self._data
+            # a 3x3 stencil over the whole plane: a row-sharded image is
+            # taken gathered
+            d = pm.gather(self._data, "noise")
             if d.dim() == 1:
                 d = d.reshape(-1, self._width)
             elif d.dim() == 3:
@@ -490,14 +541,17 @@ class Stats:
             scale = fast_approx_mad(flat, loc)
             self._location, self._scale = float(loc), float(scale)
         elif mode == LSEstimatorMode.IKSS:
-            loc, scale = ikss(flat)
+            # IKSS's rounds shrink a window over the sorted pixels: a
+            # row-sharded image is taken gathered
+            loc, scale = ikss(pm.gather(flat, "ikss"))
             self._location, self._scale = float(loc), float(scale)
         elif mode in (LSEstimatorMode.SCMedianQn, LSEstimatorMode.Histogram):
             self._ensure_mmm()
             mn = torch.tensor(self._min, dtype=torch.float32, device=dev)
             mx = torch.tensor(self._max, dtype=torch.float32, device=dev)
             if mode == LSEstimatorMode.SCMedianQn:
-                loc, scale = location_scale(flat[None], mn[None], mx[None])
+                rows = flat if isinstance(flat, pm.RowSharded) else flat[None]
+                loc, scale = location_scale(rows, mn[None], mx[None])
                 loc, scale = loc[0], scale[0]
             else:
                 loc, scale = histogram_scale_loc(flat, mn, mx, 4096)

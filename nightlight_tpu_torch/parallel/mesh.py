@@ -9,12 +9,24 @@ of torch devices (``Mesh``), and writes each collective out as a copy:
 * a row-sharded value (``RowSharded``) holds one (..., H/n, W) block per
   mesh device, in mesh order, or, where the rows do not divide the mesh
   (JAX's ``P()``), one replicated copy on the lead device;
-* ``psum`` of the clip counts is a sum of the per-shard int64 counts on the
-  lead device (``mesh.devices[0]``);
-* ``ppermute`` of halo rows is a copy of the neighbour's boundary rows
-  (``Tensor.to(dev, non_blocking=True)``); the first and last shard receive
-  zeros, as JAX's ``ppermute`` gives a shard without a source;
-* an all-gather is ``torch.cat`` of the blocks on the lead device.
+* ``psum`` of counts is a sum of the per-shard int64 counts on the lead
+  device (``mesh.devices[0]``); the float reductions (``min_max``,
+  ``sum64``) combine per-shard partials there, sums in float64;
+* ``halo`` copies neighbour rows (``Tensor.to(dev, non_blocking=True)``)
+  and tells the caller where the frame ends instead of sending zeros;
+  ``ppermute`` in the step functions below sends zeros, as JAX's does to a
+  shard without a source;
+* ``take_flat`` gathers single pixels at global flat indices from the
+  shards that own them;
+* an all-gather is ``torch.cat`` of the blocks on the lead device
+  (``RowSharded.gather``), counted per asking site in ``GATHERS``.
+
+Under ``Context.mesh`` every loaded frame is row-sharded at load
+(``place_on_mesh``; io/fits.py and io/ingest.py upload each shard's rows
+straight to its device), and the per-frame operators of the ``stack`` path
+run on each shard's rows: calibrate, bad-pixel repair, statistics,
+histogram match and the warp (ops/resample.py). ``OpStack`` stacks each
+device's blocks into its block of the batch cube.
 
 A device may appear more than once in a mesh: the CPU tests run 8 shards on
 the CPU (``make_mesh([torch.device("cpu")] * 8)``, beside JAX's 8 virtual
@@ -33,6 +45,7 @@ halo covers the displacement).
 
 from __future__ import annotations
 
+import collections
 import math
 from dataclasses import dataclass
 
@@ -62,6 +75,12 @@ class Mesh:
         return self.devices[0]
 
 
+# all-gathers of row-sharded values (replicated values cost none), by the
+# site that asked for one: chip_smoke.py and the tests read which per-frame
+# work took a frame whole
+GATHERS: collections.Counter = collections.Counter()
+
+
 class RowSharded:
     """A (..., H, W) value over a mesh: ``blocks`` holds the (..., H/n, W)
     row block of each mesh device in mesh order, or one copy on the lead
@@ -80,24 +99,43 @@ class RowSharded:
         return math.prod(self.shape)
 
     @property
+    def device(self) -> torch.device:
+        """The lead device, where gathered values and reductions land."""
+        return self.mesh.lead
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.blocks[0].dtype
+
+    @property
     def spec(self) -> tuple:
         """The JAX PartitionSpec this placement stands for, as a tuple."""
         if self.replicated:
             return ()
         return (None,) * (self.dim() - 2) + (self.mesh.axis, None)
 
-    def gather(self) -> torch.Tensor:
-        """The whole value on the lead device (an all-gather)."""
+    @property
+    def row0s(self) -> list[int]:
+        """The first global row of each block."""
+        if self.replicated:
+            return [0]
+        rows = self.shape[-2] // self.mesh.size
+        return [k * rows for k in range(self.mesh.size)]
+
+    def gather(self, site: str = "other") -> torch.Tensor:
+        """The whole value on the lead device (an all-gather), counted in
+        GATHERS under `site`."""
         if self.replicated:
             return self.blocks[0]
+        GATHERS[site] += 1
         lead = self.mesh.lead
         return torch.cat([_to(b, lead) for b in self.blocks], dim=-2)
 
 
-def gather(x) -> torch.Tensor:
+def gather(x, site: str = "other") -> torch.Tensor:
     """x as one tensor: a RowSharded gathered on its lead device, a tensor
     as it is."""
-    return x.gather() if isinstance(x, RowSharded) else x
+    return x.gather(site) if isinstance(x, RowSharded) else x
 
 
 def _to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -125,7 +163,7 @@ def shard_rows(mesh: Mesh, data) -> RowSharded:
     if isinstance(data, RowSharded):
         if not data.replicated and data.mesh == mesh:
             return data
-        data = data.gather()
+        data = data.gather("reshard")
     n = mesh.size
     if data.dim() < 2 or data.shape[-2] % n != 0:
         raise ValueError(f"shard_rows: {tuple(data.shape)} has no row axis that divides "
@@ -138,33 +176,167 @@ def shard_rows(mesh: Mesh, data) -> RowSharded:
 
 def replicated(mesh: Mesh, data) -> RowSharded:
     """One copy of data on the lead device (JAX: ``P()``)."""
-    data = gather(data)
+    data = gather(data, "replicate")
     return RowSharded(mesh, data.shape, [_to(data, mesh.lead)], replicated=True)
+
+
+def divides(mesh: Mesh, shape) -> bool:
+    """Whether a (..., H, W) value of this shape row-shards over the mesh."""
+    return len(shape) >= 2 and shape[-2] % mesh.size == 0
 
 
 def place_on_mesh(data, mesh: Mesh, axis: str = "pix") -> RowSharded:
     """Row-shard an image array of shape (..., H, W) across the mesh; an
-    array whose row count does not divide the mesh stays replicated.
+    array whose row count does not divide the mesh is replicated (one copy
+    on the lead device), as in the JAX package.
 
-    The JAX package places every loaded frame so and lets XLA's sharding
-    propagation run each later program sharded. The port has no
-    propagation: its operators keep frames whole on the lead device, and
-    the batch cube is split where JAX's shard_map begins, at the stack
-    (pipeline/ops_stack.py OpStack._batch_frames)."""
-    data = gather(data)
-    if data.dim() < 2 or data.shape[-2] % mesh.size != 0:
+    This is the placement of every frame under ``Context.mesh``: the loader
+    puts each shard's rows straight on its device (io/fits.py,
+    io/ingest.py), and the per-frame operators of the stack path then run
+    on each shard's rows, as XLA's sharding propagation runs the JAX
+    package's programs: calibrate, bad-pixel repair (a one-row halo), the
+    statistics (reductions of per-shard partials, the sampled estimators
+    through take_flat), histogram match and the warp (a halo of the rows
+    the transform reaches, else the source gathered). Operators that need
+    whole columns or the whole grid (the debands, background extraction,
+    star detection on the lead) take the frame gathered and, where they
+    return an image, place it back."""
+    if isinstance(data, RowSharded) and data.mesh == mesh:
+        if data.replicated == (not divides(mesh, data.shape)):
+            return data
+    if not divides(mesh, data.shape):
         return replicated(mesh, data)
     return shard_rows(mesh, data)
 
 
-def psum(values, mesh: Mesh) -> torch.Tensor:
-    """The per-shard counts summed on the lead device (JAX's ``psum``); no
-    value is read back to the host."""
+def map_blocks(fn, x: RowSharded, *args, shape=None) -> RowSharded:
+    """fn(block, *args') on each shard's device: a RowSharded argument
+    placed like x hands over its own block, another is passed as it is.
+    The result has x's placement and shape (or `shape`, with the same row
+    split)."""
+    def arg(a, k):
+        if isinstance(a, RowSharded):
+            if a.replicated != x.replicated or len(a.blocks) != len(x.blocks):
+                raise ValueError("map_blocks: arguments placed unlike the value")
+            return a.blocks[k]
+        return a
+
+    blocks = [fn(b, *(arg(a, k) for a in args)) for k, b in enumerate(x.blocks)]
+    return RowSharded(x.mesh, x.shape if shape is None else shape, blocks, x.replicated)
+
+
+def per_block(fn, data):
+    """fn on each shard's block of a RowSharded value (map_blocks), or on a
+    tensor."""
+    return map_blocks(fn, data) if isinstance(data, RowSharded) else fn(data)
+
+
+def halo(x: RowSharded, above: int, below: int) -> list:
+    """Each shard's block with up to `above` rows of the shard before it and
+    `below` rows of the one after it, copied to its device: a list of
+    (rows, top, bottom), `top`/`bottom` the rows received. The frame's own
+    first and last rows get none (top or bottom 0), not zeros: the caller
+    decides what its edge means. A replicated value is one block, top and
+    bottom 0."""
+    if x.replicated:
+        return [(x.blocks[0], 0, 0)]
+    rows = x.shape[-2] // x.mesh.size
+    if above > rows or below > rows:
+        raise ValueError(f"halo: {above}/{below} rows exceed a shard's {rows}")
+    out = []
+    n = len(x.blocks)
+    for k, (dev, b) in enumerate(zip(x.mesh.devices, x.blocks)):
+        parts, top, bottom = [], 0, 0
+        if k > 0 and above:
+            parts.append(_to(x.blocks[k - 1][..., rows - above:, :], dev))
+            top = above
+        parts.append(b)
+        if k + 1 < n and below:
+            parts.append(_to(x.blocks[k + 1][..., :below, :], dev))
+            bottom = below
+        out.append((torch.cat(parts, dim=-2) if len(parts) > 1 else b, top, bottom))
+    return out
+
+
+def min_max(x: RowSharded):
+    """(min, max) over every element as 0-d tensors on the lead device:
+    exact, the per-shard extremes compared there."""
+    lead = x.mesh.lead
+    mns = torch.stack([_to(b.amin(), lead) for b in x.blocks])
+    mxs = torch.stack([_to(b.amax(), lead) for b in x.blocks])
+    return mns.amin(), mxs.amax()
+
+
+def sum64(x: RowSharded, fn=None) -> torch.Tensor:
+    """Sum over every element of fn(block) (the block itself by default),
+    each shard's sum in float64, the partials added on the lead device:
+    a 0-d float64 tensor. The unsharded code accumulates in float64 too, so
+    a result rounded once to float32 is the same but at a rounding tie."""
+    lead = x.mesh.lead
     total = None
-    for v in values:
-        v = _to(torch.as_tensor(v), mesh.lead)
+    for b in x.blocks:
+        v = (b if fn is None else fn(b)).to(torch.float64).sum()
+        v = _to(v, lead)
         total = v if total is None else total + v
     return total
+
+
+def psum(values, mesh: Mesh) -> torch.Tensor:
+    """The per-shard counts summed on the lead device (JAX's ``psum``), as
+    int64; no value is read back to the host."""
+    total = None
+    for v in values:
+        v = _to(torch.as_tensor(v), mesh.lead).to(torch.int64)
+        total = v if total is None else total + v
+    return total
+
+
+# take_flat's routings, newest last: (idx, shape, mesh) -> per shard
+# (positions in draw order on the lead, local flat indices on the shard)
+_ROUTES: collections.OrderedDict = collections.OrderedDict()
+
+
+def _route(idx: np.ndarray, shape, mesh: Mesh) -> list:
+    """The routing of global flat indices `idx` over the shards of a
+    (..., H, W) value, on the devices, kept for the last few index arrays
+    (the estimators draw the same indices for every frame of a size)."""
+    key = (id(idx), tuple(shape), mesh)
+    hit = _ROUTES.get(key)
+    if hit is not None and hit[0] is idx:
+        _ROUTES.move_to_end(key)
+        return hit[1]
+    h, w = shape[-2], shape[-1]
+    rows = h // mesh.size
+    flat = np.asarray(idx, np.int64)
+    plane, rest = np.divmod(flat, h * w)
+    row, col = np.divmod(rest, w)
+    owner = row // rows
+    local = (plane * rows + row % rows) * w + col
+    routes = []
+    for k, dev in enumerate(mesh.devices):
+        sel = np.nonzero(owner == k)[0]
+        routes.append((torch.from_numpy(sel).to(mesh.lead),
+                       torch.from_numpy(local[sel]).to(dev)))
+    _ROUTES[key] = (idx, routes)  # holds idx, so its id is not reused
+    while len(_ROUTES) > 8:
+        _ROUTES.popitem(last=False)
+    return routes
+
+
+def take_flat(x: RowSharded, idx) -> torch.Tensor:
+    """x.reshape(-1)[idx] on the lead device, in the order of `idx` (global
+    flat indices, a numpy array): each index is routed to the shard that
+    owns its row, each shard gathers its own, and the values are put in
+    draw order on the lead."""
+    if x.replicated:
+        return x.blocks[0].reshape(-1)[torch.tensor(idx, dtype=torch.int64,
+                                                    device=x.blocks[0].device)]
+    lead = x.mesh.lead
+    out = torch.empty(len(idx), dtype=x.dtype, device=lead)
+    for b, (sel, local) in zip(x.blocks, _route(idx, x.shape, x.mesh)):
+        if sel.numel():
+            out[sel] = _to(b.reshape(-1)[local], lead)
+    return out
 
 
 def sharded_star_detect(mesh: Mesh, radius: int = 16, max_candidates: int = 2048,
@@ -176,13 +348,15 @@ def sharded_star_detect(mesh: Mesh, radius: int = 16, max_candidates: int = 2048
     JAX partitions the detector over the mesh, its global reductions
     becoming collectives. The port all-gathers the rows onto the lead
     device and runs its unsharded detector there, K4 included: the outputs
-    are a few thousand candidates, small and replicated in both."""
+    are a few thousand candidates, small and replicated in both. The frame
+    itself stays sharded (OpStarDetect)."""
     from nightlight_tpu_torch.detect.stars import find_stars
 
     def fn(img, location, scale, star_sig, bp_sig, star_in_out, median_diff_std):
-        return find_stars(gather(img), float(location), float(scale), float(star_sig),
-                          float(bp_sig), float(star_in_out), radius,
-                          float(median_diff_std), max_candidates)
+        return find_stars(gather(img, "detect"), float(location), float(scale),
+                          float(star_sig), float(bp_sig), float(star_in_out), radius,
+                          None if median_diff_std is None else float(median_diff_std),
+                          max_candidates)
 
     return fn
 
@@ -199,8 +373,8 @@ def sharded_auto_stretch(mesh: Mesh, max_iter: int = 50, axis: str = "pix"):
     from nightlight_tpu_torch.ops.autostretch import auto_stretch
 
     def fn(data, target_loc, target_scale):
-        out, hist, n_iter, converged = auto_stretch(gather(data), target_loc, target_scale,
-                                                    max_iter=max_iter)
+        out, hist, n_iter, converged = auto_stretch(gather(data, "stretch"), target_loc,
+                                                    target_scale, max_iter=max_iter)
         return place_on_mesh(out, mesh, axis), hist, n_iter, converged
 
     return fn

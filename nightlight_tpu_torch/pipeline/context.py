@@ -70,9 +70,11 @@ class Context:
     @property
     def mesh(self):
         """Optional parallel.mesh.Mesh (JAX: a jax.sharding.Mesh). When set,
-        OpStack splits the batch cube by rows across it and runs the stack
-        and the goal-seek per shard; frames stay whole on the mesh's lead
-        device, which becomes the context's device."""
+        OpLoad places every frame on it by rows (parallel/mesh.py
+        place_on_mesh), the per-frame operators run on each shard's rows,
+        and OpStack stacks each device's blocks and runs the stack and the
+        goal-seek per shard. The mesh's lead device, which becomes the
+        context's device, holds what is gathered or replicated."""
         return self._mesh
 
     @mesh.setter

@@ -11,6 +11,7 @@ are read ahead on the loader's threads (io/ingest.py).
 
 from __future__ import annotations
 
+import dataclasses
 import glob as globmod
 import json
 import os
@@ -19,6 +20,7 @@ from enum import IntEnum
 from typing import Callable, Optional
 
 from nightlight_tpu_torch.image import Image
+from nightlight_tpu_torch.parallel import mesh as pm
 from nightlight_tpu_torch.pipeline.context import Context
 
 Promise = Callable[[], Optional[Image]]
@@ -99,7 +101,14 @@ class Operator:
 
 
 class UnaryOperator(Operator):
-    """1-in/1-out operator fanning over n inputs (operator.go:170-207)."""
+    """1-in/1-out operator fanning over n inputs (operator.go:170-207).
+
+    Under ``Context.mesh`` a frame's data may be row-sharded
+    (parallel/mesh.py RowSharded). An operator whose apply() works on that
+    sets ``SHARDED = True``; any other takes the frame gathered whole onto
+    the lead device (``take_whole``), and keeps it whole after."""
+
+    SHARDED = False
 
     def make_promises(self, ins: list[Promise], c: Context) -> list[Promise]:
         if not ins:
@@ -111,12 +120,23 @@ class UnaryOperator(Operator):
             f = in_p()
             if f is None:
                 return None
+            if not self.SHARDED:
+                take_whole(f, self.TYPE)
             return self.apply(f, c)
 
         return out
 
     def apply(self, f: Image, c: Context) -> Optional[Image]:
         raise NotImplementedError
+
+
+def take_whole(f: Image, site: str) -> None:
+    """Gather a row-sharded frame onto the mesh's lead device, for an
+    operator that has no sharded form (its statistics stay valid)."""
+    if isinstance(f.data, pm.RowSharded):
+        f.data = pm.gather(f.data, site)
+        if f.stats is not None:
+            f.stats.replace_data(f.data)
 
 
 def materialize_all(ins: list[Promise], forget: bool = False, compact: bool = True):
@@ -178,9 +198,10 @@ class _RangeWarn:
 @register
 class OpLoad(Operator):
     """Load one FITS/TIFF image (operator.go:210-282).
-    The image lands on the context's device, whole, also under a mesh (the
-    JAX package row-shards it here and lets XLA propagate the sharding; the
-    port splits the batch cube at the stack, OpStack._batch_frames)."""
+    The image lands on the context's device; under c.mesh it is placed on
+    the mesh by rows (parallel/mesh.py place_on_mesh, as the JAX package
+    places it here), each shard's rows uploaded straight to its device by
+    the readers, and the per-frame operators run on the shards."""
 
     TYPE = "load"
     PARAMS = {"id": ("id", 0), "file_name": ("fileName", "")}
@@ -208,7 +229,13 @@ class OpLoad(Operator):
         else:
             from nightlight_tpu_torch.io.fits import read_file
 
-            f = read_file(self.file_name, id=self.id, log=c.log, device=c.device)
+            f = read_file(self.file_name, id=self.id, log=c.log, device=c.device,
+                          mesh=c.mesh)
+        if c.mesh is not None:
+            # the readers shard what they can upload by rows; a TIFF or
+            # integer rows that do not divide the mesh arrive whole
+            f.data = pm.place_on_mesh(f.data, c.mesh)
+            f.stats.replace_data(f.data)
         f.stats.mode = c.ls_estimator_mode
         f.stats._ensure_mmm()
         c.logf("%d: Loaded %s image with %s from %s%s\n",
@@ -242,10 +269,10 @@ class OpLoadMany(Operator):
         # integer frames: raw payloads read ahead within a byte window;
         # else host decode ahead, worth it only with a spare core, as the
         # JAX package's gates decide (operators.py:385-398)
-        prefetcher = ReadAheadLoader.try_create(specs, c.log, c.device)
+        prefetcher = ReadAheadLoader.try_create(specs, c.log, c.device, mesh=c.mesh)
         if prefetcher is None and len(specs) > 1 and (os.cpu_count() or 1) > 1:
             prefetcher = ReadAheadLoader(specs, c.log, c.device, window_bytes=None,
-                                         lookahead=LOOKAHEAD)
+                                         lookahead=LOOKAHEAD, mesh=c.mesh)
         if prefetcher is not None:
             c.own(prefetcher)
         outs: list[Promise] = []
@@ -307,6 +334,10 @@ class OpSave(Operator):
         if f is None:
             return None
         c.flush_log()
+        saved = f
+        if isinstance(f.data, pm.RowSharded):
+            # the writers take the pixels whole; the frame passes on sharded
+            saved = dataclasses.replace(f, data=pm.gather(f.data, "save"))
         file_name = self.file_pattern
         if re.search(r"%0?\d*d", file_name):
             file_name = file_name % f.id
@@ -326,18 +357,18 @@ class OpSave(Operator):
             c.logf("%d: Writing %s pixel FITS to %s\n", f.id, f.dimensions_string(), file_name)
             from nightlight_tpu_torch.io.fits import write_file
 
-            write_file(f, file_name)
+            write_file(saved, file_name)
         elif fn_lower.endswith((".tiff", ".tif")):
             from nightlight_tpu_torch.io.tiff import write_mono_tiff16, write_tiff16
 
             if len(f.naxisn) == 2:
                 c.logf("%d: Writing %s pixel mono 16-bit TIFF to %s with min=%g max=%g...\n",
                        f.id, f.dimensions_string(), file_name, vmin, vmax)
-                write_mono_tiff16(f, file_name, vmin, vmax, self.gamma)
+                write_mono_tiff16(saved, file_name, vmin, vmax, self.gamma)
             elif len(f.naxisn) == 3 and f.naxisn[2] == 3:
                 c.logf("%d: Writing %s pixel color 16-bit TIFF to %s with min=%g max=%g...\n",
                        f.id, f.dimensions_string(), file_name, vmin, vmax)
-                write_tiff16(f, file_name, vmin, vmax, self.gamma)
+                write_tiff16(saved, file_name, vmin, vmax, self.gamma)
             else:
                 raise ValueError(f"{f.id}: unable to write {f.dimensions_string()} pixel "
                                  f"image as 16-bit TIFF to {file_name}")
@@ -347,11 +378,11 @@ class OpSave(Operator):
             if len(f.naxisn) == 2:
                 c.logf("%d: Writing %s pixel mono JPEG to %s with min=%g max=%g gamma=%g...\n",
                        f.id, f.dimensions_string(), file_name, vmin, vmax, self.gamma)
-                write_mono_jpg(f, file_name, vmin, vmax, self.gamma, 95)
+                write_mono_jpg(saved, file_name, vmin, vmax, self.gamma, 95)
             elif len(f.naxisn) == 3 and f.naxisn[2] == 3:
                 c.logf("%d: Writing %s pixel color JPEG to %s with min=%g max=%g gamma=%g...\n",
                        f.id, f.dimensions_string(), file_name, vmin, vmax, self.gamma)
-                write_jpg(f, file_name, vmin, vmax, self.gamma, 95)
+                write_jpg(saved, file_name, vmin, vmax, self.gamma, 95)
             else:
                 raise ValueError(f"{f.id}: unable to write {f.dimensions_string()} pixel "
                                  f"image as JPEG to {file_name}")

@@ -1,6 +1,9 @@
 """Histogram normalization and alignment operators
 (reference: internal/ops/post/postprocess.go), mirror of
-nightlight_tpu/pipeline/ops_post.py."""
+nightlight_tpu/pipeline/ops_post.py. Under ``Context.mesh`` both run on
+each shard's rows of a row-sharded frame: the match is per pixel, and the
+warp (ops/resample.py project) reads a halo of the rows the transform
+reaches."""
 
 from __future__ import annotations
 
@@ -10,7 +13,8 @@ import numpy as np
 
 from nightlight_tpu_torch.align import transform as tf
 from nightlight_tpu_torch.image import Image
-from nightlight_tpu_torch.ops import pixelmath as pm
+from nightlight_tpu_torch.ops import pixelmath as pxm
+from nightlight_tpu_torch.parallel import mesh as pm
 from nightlight_tpu_torch.pipeline.context import Context
 from nightlight_tpu_torch.pipeline.operators import UnaryOperator, materialize_all, register
 
@@ -39,6 +43,7 @@ class OpMatchHistogram(UnaryOperator):
 
     TYPE = "matchHist"
     PARAMS = {"mode": ("mode", int(HistoNormMode.LocScale))}
+    SHARDED = True
 
     def apply(self, f: Image, c: Context):
         if f is None:
@@ -50,18 +55,21 @@ class OpMatchHistogram(UnaryOperator):
             raise ValueError("missing histogram reference")
         if mode == HistoNormMode.Location:
             multiplier = c.match_histo.location / f.stats.location
-            f.data = pm.match_location(f.data, f.stats.location, c.match_histo.location)
+            f.data = pm.per_block(lambda b: pxm.match_location(b, f.stats.location,
+                                                             c.match_histo.location), f.data)
             f.stats.replace_data(f.data)
             f.stats.update_cached_with(multiplier, 0.0)
         elif mode == HistoNormMode.LocScale:
             multiplier = c.match_histo.scale / f.stats.scale
             offset = c.match_histo.location - f.stats.location * multiplier
-            f.data = pm.match_histogram(f.data, f.stats.location, f.stats.scale,
-                                        c.match_histo.location, c.match_histo.scale)
+            f.data = pm.per_block(lambda b: pxm.match_histogram(
+                b, f.stats.location, f.stats.scale, c.match_histo.location,
+                c.match_histo.scale), f.data)
             f.stats.replace_data(f.data)
             f.stats.update_cached_with(multiplier, offset)
         elif mode == HistoNormMode.LocBlack:
-            f.data = pm.shift_black_to_move(f.data, f.stats.location, c.match_histo.location)
+            f.data = pm.per_block(lambda b: pxm.shift_black_to_move(
+                b, f.stats.location, c.match_histo.location), f.data)
             f.stats.set_data(f.data)
         c.logf("%d: %s after matching reference histogram %s\n", f.id, f.stats, c.match_histo)
         return f
@@ -92,6 +100,7 @@ class OpAlign(UnaryOperator):
         "threshold": ("threshold", 1.0),
         "oob_mode": ("oobMode", int(OutOfBoundsMode.NaN)),
     }
+    SHARDED = True
 
     def __init__(self, defer_warp: bool = False, **kwargs):
         super().__init__(**kwargs)

@@ -1,17 +1,24 @@
 """Preprocessing operators: calibrate, badPixel, debayer, deband,
 scaleOffset, bin, starDetect, backExtract (reference: internal/ops/pre/),
-mirror of nightlight_tpu/pipeline/ops_pre.py."""
+mirror of nightlight_tpu/pipeline/ops_pre.py.
+
+Under ``Context.mesh`` each takes a row-sharded frame (parallel/mesh.py
+RowSharded). Calibrate, bad-pixel repair, debayer, scaleOffset and bin run
+on each shard's rows; detection gathers a copy onto the lead device; the
+debands and background extraction, which need whole columns or the whole
+grid, run on the gathered frame and place the result back."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from nightlight_tpu_torch.image import Image, bin_nxn
-from nightlight_tpu_torch.ops import pixelmath as pm
+from nightlight_tpu_torch.ops import pixelmath as pxm
 from nightlight_tpu_torch.ops import prestack as ps
+from nightlight_tpu_torch.parallel import mesh as pm
 from nightlight_tpu_torch.pipeline.context import Context
 from nightlight_tpu_torch.pipeline.operators import (
-    OpLoad, UnaryOperator, materialize_all, register)
+    OpLoad, UnaryOperator, materialize_all, register, take_whole)
 
 
 @register
@@ -21,6 +28,7 @@ class OpCalibrate(UnaryOperator):
 
     TYPE = "calibrate"
     PARAMS = {"dark": ("dark", ""), "flat": ("flat", "")}
+    SHARDED = True
 
     def is_noop(self) -> bool:
         return not self.dark and not self.flat
@@ -59,12 +67,36 @@ class OpCalibrate(UnaryOperator):
                 c.logf("%d: Warning: light dimensions %s differ from %s dimensions %s "
                        "but same product, ignoring for Seestar",
                        f.id, f.naxisn, what, master.naxisn)
+        if isinstance(f.data, pm.RowSharded):
+            # per shard, the masters sharded like the frame
+            if c.dark_frame is not None:
+                f.set_data(pm.map_blocks(ps.subtract, f.data, _master_like(c.dark_frame, f)))
+            if c.flat_frame is not None:
+                flat_max = c.flat_frame.stats.max
+                f.set_data(pm.map_blocks(lambda b, fl: ps.flat_divide(b, fl, flat_max), f.data,
+                                         _master_like(c.flat_frame, f)))
+            return f
         if c.dark_frame is not None:
-            f.set_data(ps.subtract(f.data, c.dark_frame.data.reshape(f.data.shape)))
+            dark = pm.gather(c.dark_frame.data, "master")
+            f.set_data(ps.subtract(f.data, dark.reshape(f.data.shape)))
         if c.flat_frame is not None:
-            f.set_data(ps.flat_divide(f.data, c.flat_frame.data.reshape(f.data.shape),
+            flat = pm.gather(c.flat_frame.data, "master")
+            f.set_data(ps.flat_divide(f.data, flat.reshape(f.data.shape),
                                       c.flat_frame.stats.max))
         return f
+
+
+def _master_like(master: Image, f: Image):
+    """A master frame's pixels placed like the frame's: its own data (it is
+    loaded under the same mesh), unless its axes differ from the frame's
+    with the same pixel count (the Seestar case); then it is reshaped
+    whole and placed."""
+    d = master.data
+    if isinstance(d, pm.RowSharded) and d.shape == f.data.shape \
+            and d.replicated == f.data.replicated:
+        return d
+    whole = pm.gather(d, "master").reshape(f.data.shape)
+    return pm.place_on_mesh(whole, f.data.mesh)
 
 
 @register
@@ -74,6 +106,7 @@ class OpBadPixel(UnaryOperator):
 
     TYPE = "badPixel"
     PARAMS = {"sigma_low": ("sigmaLow", 3.0), "sigma_high": ("sigmaHigh", 5.0)}
+    SHARDED = True
 
     def __init__(self, debayer=None, **kwargs):
         super().__init__(**kwargs)
@@ -85,13 +118,17 @@ class OpBadPixel(UnaryOperator):
     def apply(self, f: Image, c: Context) -> Image:
         if self.is_noop():
             return f
+        if isinstance(f.data, pm.RowSharded) and f.data.dim() != 2:
+            # a cube's repair is per plane: it is taken whole
+            take_whole(f, self.TYPE)
         debayer = self.debayer
         if debayer is not None and getattr(debayer, "channel", ""):
             # median_diff_stats stays unset: detection then estimates it on
             # the final (debayered) image
-            corrected, n_removed = ps.cosmetic_correction_bayer(
-                f.data, debayer.channel, debayer.color_filter_array, self.sigma_low,
-                self.sigma_high)
+            correct = (ps.cosmetic_correction_bayer_sharded
+                       if isinstance(f.data, pm.RowSharded) else ps.cosmetic_correction_bayer)
+            corrected, n_removed = correct(f.data, debayer.channel, debayer.color_filter_array,
+                                           self.sigma_low, self.sigma_high)
             f.set_data(corrected)
             n_removed = int(n_removed)
             # float32 n * (100 / pixels), as the JAX package formats it
@@ -101,7 +138,9 @@ class OpBadPixel(UnaryOperator):
             return f
         from nightlight_tpu_torch.ops.stats import Stats
 
-        repaired, n_bad, diff_std = ps.bad_pixel_repair(f.data, self.sigma_low, self.sigma_high)
+        repair = (ps.bad_pixel_repair_sharded if isinstance(f.data, pm.RowSharded)
+                  else ps.bad_pixel_repair)
+        repaired, n_bad, diff_std = repair(f.data, self.sigma_low, self.sigma_high)
         f.median_diff_stats = Stats.from_stddev(float(diff_std))
         f.set_data(repaired)
         n_bad = int(n_bad)
@@ -116,6 +155,7 @@ class OpDebayer(UnaryOperator):
 
     TYPE = "debayer"
     PARAMS = {"channel": ("channel", ""), "color_filter_array": ("colorFilterArray", "RGGB")}
+    SHARDED = True
 
     def is_noop(self) -> bool:
         return not self.channel or not self.color_filter_array
@@ -123,7 +163,9 @@ class OpDebayer(UnaryOperator):
     def apply(self, f: Image, c: Context) -> Image:
         if self.is_noop():
             return f
-        out = ps.debayer_bilinear(f.data, self.channel, self.color_filter_array)
+        debayer = (ps.debayer_sharded if isinstance(f.data, pm.RowSharded)
+                   else ps.debayer_bilinear)
+        out = debayer(f.data, self.channel, self.color_filter_array)
         f.set_data(out, naxisn=[out.shape[1], out.shape[0]])
         c.logf("%d: Debayered channel %s from cfa %s, new size %dx%d\n",
                f.id, self.channel, self.color_filter_array, f.naxisn[0], f.naxisn[1])
@@ -137,6 +179,7 @@ class _Deband(UnaryOperator):
     PARAMS = {"percentile": ("percentile", 50.0), "window": ("window", 128),
               "sigma": ("sigma", 3.0)}
     HORIZONTAL = True
+    SHARDED = True
     LOG = ""
 
     def is_noop(self) -> bool:
@@ -150,9 +193,11 @@ class _Deband(UnaryOperator):
         from nightlight_tpu_torch.ops.deband import deband
 
         loc, scale = (f.stats.location, f.stats.scale) if self.sigma != 0 else (0.0, 0.0)
-        out, lo, hi, threshold = deband(f.data, self.percentile, self.window, self.sigma,
-                                        loc, scale, self.HORIZONTAL)
-        f.set_data(out)
+        # the band factors need whole rows and columns: a row-sharded frame
+        # is debanded gathered and placed back
+        out, lo, hi, threshold = deband(pm.gather(f.data, self.TYPE), self.percentile,
+                                        self.window, self.sigma, loc, scale, self.HORIZONTAL)
+        f.set_data(_place_like(out, f.data))
         c.logf(self.LOG, f.id, self.percentile, self.window, self.sigma, threshold, lo, hi)
         return f
 
@@ -182,6 +227,7 @@ class OpScaleOffset(UnaryOperator):
 
     TYPE = "scaleOffset"
     PARAMS = {"scale": ("scale", 1.0), "offset": ("offset", 0.0)}
+    SHARDED = True
 
     def is_noop(self) -> bool:
         return self.scale == 1 and self.offset == 0
@@ -191,7 +237,7 @@ class OpScaleOffset(UnaryOperator):
             return f
         c.logf("%d: Applying pixel math x = x * %.3f + %.3f%%\n",
                f.id, self.scale, self.offset * 100)
-        f.data = pm.scale_offset(f.data, self.scale, self.offset)
+        f.data = pm.per_block(lambda b: pxm.scale_offset(b, self.scale, self.offset), f.data)
         f.stats.replace_data(f.data)
         f.stats.update_cached_with(self.scale, self.offset)
         return f
@@ -203,6 +249,7 @@ class OpBin(UnaryOperator):
 
     TYPE = "bin"
     PARAMS = {"bin_size": ("binSize", 1)}
+    SHARDED = True
 
     def is_noop(self) -> bool:
         return self.bin_size <= 1
@@ -229,6 +276,7 @@ class OpStarDetect(UnaryOperator):
         "in_out_ratio": ("inOutRatio", 10.0),
         "save": ("save", None),
     }
+    SHARDED = True
 
     def is_noop(self) -> bool:
         return self.radius == 0 or self.sigma == 0
@@ -243,13 +291,19 @@ class OpStarDetect(UnaryOperator):
         median_diff_std = None
         if f.median_diff_stats is not None:
             median_diff_std = f.median_diff_stats.stddev
-        data2d = f.data if f.data.dim() == 2 else f.data[0]
-        # a frame is whole on the context's device, also under a mesh, so
-        # detection keeps K4 (the JAX package falls back to the XLA gather
-        # there: a pallas_call cannot address a row-sharded frame)
-        f.stars, f.hfr = find_stars(data2d, f.stats.location, f.stats.scale, self.sigma,
-                                    self.bad_pixel_sigma, self.in_out_ratio,
-                                    int(self.radius), median_diff_std)
+        args = (f.stats.location, f.stats.scale, self.sigma, self.bad_pixel_sigma,
+                self.in_out_ratio)
+        if isinstance(f.data, pm.RowSharded) and f.data.dim() == 2:
+            # detection runs on a copy gathered onto the lead device, where K4
+            # addresses the whole frame (the JAX package falls back to the
+            # XLA gather under a mesh: a pallas_call cannot address a
+            # row-sharded frame); the frame itself stays sharded
+            f.stars, f.hfr = pm.sharded_star_detect(f.data.mesh, int(self.radius))(
+                f.data, *args, median_diff_std)
+        else:
+            data = pm.gather(f.data, "detect")
+            data2d = data if data.dim() == 2 else data[0]
+            f.stars, f.hfr = find_stars(data2d, *args, int(self.radius), median_diff_std)
         c.logf("%d: Stars %d HFR %.2f %s\n", f.id, f.stars.count, f.hfr, f.stats)
         save = self.save
         if save is not None and getattr(save, "file_pattern", ""):
@@ -271,6 +325,7 @@ class OpBackExtract(UnaryOperator):
         "clip": ("clip", 0),
         "save": ("save", None),
     }
+    SHARDED = True
 
     def is_noop(self) -> bool:
         return self.grid_size <= 0
@@ -280,14 +335,23 @@ class OpBackExtract(UnaryOperator):
             return f
         from nightlight_tpu_torch.ops.background import Background
 
-        bg = Background(f.data, self.grid_size, self.sigma, self.clip, f.stars, self.hfr_factor)
+        # the grid's cells and its fit span the whole frame: a row-sharded
+        # frame is taken gathered and the result placed back
+        whole = pm.gather(f.data, self.TYPE)
+        bg = Background(whole, self.grid_size, self.sigma, self.clip, f.stars, self.hfr_factor)
         c.logf("%d: %s\n", f.id, bg)
         save = self.save
         if save is not None and getattr(save, "file_pattern", ""):
             bg_img = Image.from_naxisn(list(f.naxisn), bg.render())
             bg_img.id = f.id
             save.apply(bg_img, c)
-            f.set_data(ps.subtract(f.data, bg_img.data))
+            f.set_data(_place_like(ps.subtract(whole, bg_img.data), f.data))
         else:
-            f.set_data(bg.subtract(f.data))
+            f.set_data(_place_like(bg.subtract(whole), f.data))
         return f
+
+
+def _place_like(out, data):
+    """`out`, computed on a gathered frame, placed on the frame's mesh
+    again (a tensor frame: `out` as it is)."""
+    return pm.place_on_mesh(out, data.mesh) if isinstance(data, pm.RowSharded) else out

@@ -171,6 +171,7 @@ class OpFilter(UnaryOperator):
 
     TYPE = "filter"
     PARAMS = {"min_stars": ("minStars", 0)}
+    SHARDED = True  # reads the star list only
 
     def apply(self, f: Image, c: Context):
         if self.min_stars <= 0:
@@ -188,6 +189,7 @@ class OpExportStats(UnaryOperator):
 
     TYPE = "exportStats"
     PARAMS = {"file_name": ("fileName", "out.html")}
+    SHARDED = True  # reads the statistics only
 
     def is_noop(self) -> bool:
         return not self.file_name

@@ -13,7 +13,8 @@ from nightlight_tpu_torch.ops import rgb as rgbops
 from nightlight_tpu_torch.ops.rgb import RGB
 from nightlight_tpu_torch.ops.stats import Stats
 from nightlight_tpu_torch.pipeline.context import Context
-from nightlight_tpu_torch.pipeline.operators import Operator, UnaryOperator, materialize_all, register
+from nightlight_tpu_torch.pipeline.operators import (
+    Operator, UnaryOperator, materialize_all, register, take_whole)
 
 
 @register
@@ -40,6 +41,10 @@ class OpRGBCombine(Operator):
     def apply(self, fs: list[Image], c: Context) -> Image:
         if len(fs) < 3 or len(fs) > 4:
             raise ValueError(f"invalid number of channels for color combination: {len(fs)}")
+        for f in fs:
+            # the colour chain has no row-sharded form: under a mesh the
+            # channels are taken whole
+            take_whole(f, self.TYPE)
         if len(fs) == 4:
             c.lum_frame = fs[3]
         c.logf("\nCombining RGB color channels...\n")

@@ -89,10 +89,11 @@ class OpStack(Operator):
         """(N, H, W) batch of the frames with pending warps applied: the
         shift-blend warp over the whole batch when every pending transform
         allows it and shapes are uniform, else per-frame projection (mixed
-        shapes, a mesh). With c.mesh set the batch is split by rows across
-        it (parallel/mesh.py place_on_mesh), where JAX's shard_map begins:
-        the frames were whole on the lead device through the per-frame
-        operators."""
+        shapes, a mesh). Under c.mesh the frames are row-sharded: each is
+        projected shard by shard (ops/resample.py), and each device's
+        blocks are stacked into its block of the cube, a RowSharded batch,
+        with no gather. The batch shift-blend warp stays off under a mesh,
+        as in the JAX package (pipeline/ops_stack.py:115)."""
         from nightlight_tpu_torch.align import transform as tf
         from nightlight_tpu_torch.ops.resample import (
             plan_batch_shift_warp, project, warp_shift_batch)
@@ -120,13 +121,23 @@ class OpStack(Operator):
             f.trans = np.asarray(f.trans, np.float32)
             f.set_data(project(f.data, f.naxisn, f.trans, float(f.pending_warp_oob)))
             f.pending_warp_oob = None
+        if c.mesh is not None:
+            from nightlight_tpu_torch.parallel import mesh as pm
+
+            datas = [f.data for f in fs]
+            for f in fs:
+                f.data = None
+            if all(isinstance(d, pm.RowSharded) and not d.replicated and d.mesh == c.mesh
+                   and d.shape == datas[0].shape for d in datas):
+                blocks = [torch.stack([d.blocks[k] for d in datas])
+                          for k in range(c.mesh.size)]
+                return pm.RowSharded(c.mesh, (len(datas), *datas[0].shape), blocks)
+            # replicated frames (rows that do not divide the mesh)
+            return pm.place_on_mesh(torch.stack([pm.gather(d, "stack") for d in datas]),
+                                    c.mesh)
         frames = torch.stack([f.data for f in fs])
         for f in fs:
             f.data = None
-        if c.mesh is not None:
-            from nightlight_tpu_torch.parallel.mesh import place_on_mesh
-
-            return place_on_mesh(frames, c.mesh)
         return frames
 
     def apply(self, fs: list, c: Context) -> Image:
@@ -162,7 +173,7 @@ class OpStack(Operator):
             from nightlight_tpu_torch.parallel.mesh import gather
 
             # the operators after the stack take the image whole
-            data = gather(data)
+            data = gather(data, "stacked")
         if mode >= stk.StackMode.Sigma:
             total = len(fs) * fs[0].pixels
             clip_lo, clip_hi = int(clip_lo), int(clip_hi)

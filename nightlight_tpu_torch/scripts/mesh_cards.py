@@ -20,9 +20,12 @@ of its own:
    image (the per-shard subsample is the same whatever card a shard is
    on);
 4. the CLI: ``stack -shard`` (defaults, a dark) on fixture lights prints
-   "Sharding frames over N devices" and equals, bit for bit, the `stack`
-   preset run through ``run_op`` with a mesh of N shards on ``cuda:0``;
-   its wall beside the run without ``-shard``.
+   "Sharding frames over N devices" (each frame row-sharded over the cards
+   from its load, the per-frame operators on each card's rows) and
+   equals, bit for bit, the `stack` preset run through ``run_op`` with a
+   mesh of N shards on ``cuda:0`` and the same job unsharded on the
+   per-frame path (the fused executor found ineligible); its wall and
+   each card's peak memory beside the run without ``-shard``.
 
 The last line is one JSON object of the measured walls and the card's name.
 """
@@ -166,9 +169,20 @@ def sharded_stacks(size: int, failures: list, walls: dict) -> None:
         failures.append("sharded goal-seek")
 
 
-def cli_over_cards(size: int, lights_n: int, failures: list, walls: dict) -> None:
+def peaks_gib(cards: int) -> list:
+    """Each card's peak allocated memory since the last reset, GiB."""
+    return [round(torch.cuda.max_memory_allocated(k) / (1 << 30), 3) for k in range(cards)]
+
+
+def reset_peaks(cards: int) -> None:
+    for k in range(cards):
+        torch.cuda.reset_peak_memory_stats(k)
+
+
+def cli_over_cards(size: int, lights_n: int, failures: list, walls: dict, peaks: dict) -> None:
     from nightlight_tpu_torch import cli, fixtures
     from nightlight_tpu_torch.io import fits
+    from nightlight_tpu_torch.models import fastpath
     from nightlight_tpu_torch.models.presets import build_command_seq
     from nightlight_tpu_torch.pipeline.context import new_context
 
@@ -184,29 +198,44 @@ def cli_over_cards(size: int, lights_n: int, failures: list, walls: dict) -> Non
         logs = {}
         for name, flags in (("plain", ()), ("shard", ("-shard",))):
             buf = io.StringIO()
+            reset_peaks(cards)
             with contextlib.redirect_stdout(buf):
                 rc, seconds = synced(lambda: cli.main(["-out", f"{name}.fits", *base, *flags,
                                                        "stack", *lights]))
             logs[name] = buf.getvalue()
             walls[f"cli stack {name}"] = seconds
+            peaks[f"cli stack {name}"] = peaks_gib(cards)
             if rc != 0:
                 failures.append(f"cli {name}: rc {rc}")
-        args = cli.build_parser().parse_args(["-out", "one_card.fits", *base, "stack", *lights])
-        cli.apply_command_defaults(args)
-        c = new_context(log=io.StringIO(), device=card(0))
-        c.mesh = pmesh.make_mesh([card(0)] * cards)
-        cli.run_op(build_command_seq(args), c)
-        shard, one, plain = (fits.read_file(f).to_numpy()
-                             for f in ("shard.fits", "one_card.fits", "plain.fits"))
+
+        def preset(out, mesh):
+            args = cli.build_parser().parse_args(["-out", out, *base, "stack", *lights])
+            cli.apply_command_defaults(args)
+            c = new_context(log=io.StringIO(), device=card(0))
+            c.mesh = mesh
+            with fastpath.per_frame_path(mesh is None):
+                cli.run_op(build_command_seq(args), c)
+
+        preset("one_card.fits", pmesh.make_mesh([card(0)] * cards))
+        reset_peaks(cards)
+        _, walls["per-frame unsharded"] = synced(lambda: preset("per_frame.fits", None))
+        peaks["per-frame unsharded"] = peaks_gib(cards)
+        shard, one, per_frame, plain = (
+            fits.read_file(f).to_numpy()
+            for f in ("shard.fits", "one_card.fits", "per_frame.fits", "plain.fits"))
         line = f"Sharding frames over {cards} devices"
         same = bool(np.array_equal(shard, one, equal_nan=True))
+        same_pf = bool(np.array_equal(shard, per_frame, equal_nan=True))
         apart = float(np.mean(~((shard == plain) | (np.isnan(shard) & np.isnan(plain)))))
         say(f"cli stack -shard over {cards} cards ({lights_n} lights of {size}^2): "
             f"'{line}' {line in logs['shard'].splitlines()}, bit for bit the mesh of {cards} "
-            f"shards on cuda:0 {same}, share of pixels apart from the run without -shard "
-            f"{apart:.6f}; walls {walls['cli stack shard']:.3f} s against "
-            f"{walls['cli stack plain']:.3f} s")
-        if line not in logs["shard"].splitlines() or not same:
+            f"shards on cuda:0 {same}, bit for bit the unsharded per-frame run {same_pf}, "
+            f"share of pixels apart from the (fused) run without -shard {apart:.6f}; walls "
+            f"{walls['cli stack shard']:.3f} s against {walls['cli stack plain']:.3f} s "
+            f"(per-frame unsharded {walls['per-frame unsharded']:.3f} s); peak GiB per card "
+            f"{peaks['cli stack shard']} against {peaks['cli stack plain']} (per-frame "
+            f"{peaks['per-frame unsharded']})")
+        if line not in logs["shard"].splitlines() or not same or not same_pf:
             failures.append("cli -shard")
     finally:
         os.chdir(cwd)
@@ -227,11 +256,12 @@ def main(argv=None) -> int:
     say(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     say(card_line())
     kernels.library()
-    failures, walls = [], {}
+    failures, walls, peaks = [], {}, {}
     kernels_on_each_card(opts.size, failures)
     sharded_stacks(opts.size, failures, walls)
-    cli_over_cards(opts.size, opts.lights, failures, walls)
-    say(json.dumps({"walls_s": walls, "cards": torch.cuda.device_count(),
+    cli_over_cards(opts.size, opts.lights, failures, walls, peaks)
+    say(json.dumps({"walls_s": walls, "peak_gib_per_card": peaks,
+                    "cards": torch.cuda.device_count(),
                     "kind": torch.cuda.get_device_name(0), "failures": failures}))
     return 1 if failures else 0
 

@@ -18,7 +18,12 @@ narrowband flags); job16_run and job16_served, the live-stacking JSON job
 of tests/test_rest.py (16 lights, no dark, the per-frame operator path, 2
 batches of 8 under the -stMemory plan_st_memory finds) through the CLI
 `run` and POSTed to serve/rest.py's server on a thread of this process,
-its chunked log read to the end. Each configuration runs
+its chunked log read to the end; shard4_auto16, auto16's job through
+`run_op` with a device mesh of 4 shards on the one card (each frame
+row-sharded from its load, the per-frame operator path), and
+perframe16, the same job unsharded on the per-frame path (the fused
+executor found ineligible, after the same loads and batch plan), so the
+two set the mesh's cost beside the same path. Each configuration runs
 `--warmup` times, then once measured with every phase function wrapped:
 the wrapper synchronises the card on entry and exit and books the time
 to its phase, less the time of phases nested inside it (star detection
@@ -89,6 +94,15 @@ PHASES = {
     "fused preprocess": [("nightlight_tpu_torch.models.fastpath", "run_fused_preprocess")],
     "star detection": [("nightlight_tpu_torch.detect.stars", "find_stars_batch"),
                        ("nightlight_tpu_torch.detect.stars", "find_stars")],
+    "calibrate, bad pixel (per frame)": [("nightlight_tpu_torch.pipeline.ops_pre",
+                                          "OpCalibrate.apply"),
+                                         ("nightlight_tpu_torch.pipeline.ops_pre",
+                                          "OpBadPixel.apply")],
+    "location/scale (per frame)": [("nightlight_tpu_torch.ops.stats",
+                                    "Stats._update_location_scale")],
+    "histogram match (per frame)": [("nightlight_tpu_torch.pipeline.ops_post",
+                                     "OpMatchHistogram.apply")],
+    "mesh gathers": [("nightlight_tpu_torch.parallel.mesh", "RowSharded.gather")],
     "align": [("nightlight_tpu_torch.align.aligner", "Aligner.align_batch"),
               ("nightlight_tpu_torch.align.aligner", "Aligner.align_one")],
     "warp": [("nightlight_tpu_torch.ops.resample", "warp_shift_batch"),
@@ -127,6 +141,9 @@ SHO_FLAGS = ("-neutSigmaLow", "0.7", "-neutSigmaHigh", "1.0", "-scnr", "0.5", "-
 # extra CLI flags
 COLOR_CONFIGS = (("lrgb_4096", (("r", 1.0), ("g", 0.8), ("b", 0.6), ("l", 1.0)), ()),
                  ("sho_4096", (("s", 0.9), ("h", 1.0), ("o", 0.7)), SHO_FLAGS))
+# name, lights, shards of the mesh on the one card (0: unsharded on the
+# per-frame path); auto16's flags, through run_op
+MESH_CONFIGS = (("shard4_auto16", 16, 4), ("perframe16", 16, 0))
 # name, how the live-stacking job runs; its lights, batches and seed
 JOB_CONFIGS = (("job16_run", "run"), ("job16_served", "served"))
 JOB_LIGHTS, JOB_BATCHES, JOB_SEED = 16, 2, 123
@@ -340,6 +357,29 @@ def run_stack(lights, out: str, flags=(), command: str = "stack") -> float:
     return time.perf_counter() - t0
 
 
+def run_mesh(lights, out: str, flags, shards: int) -> float:
+    """The `stack` preset on `lights` through run_op with a mesh of
+    `shards` shards on the card, or (0) unsharded with the fused executor
+    found ineligible for each batch; its wall in seconds."""
+    from nightlight_tpu_torch.models import fastpath
+    from nightlight_tpu_torch.models.presets import build_command_seq
+    from nightlight_tpu_torch.parallel.mesh import make_mesh
+    from nightlight_tpu_torch.pipeline.context import new_context
+
+    args = cli.build_parser().parse_args(["-out", out, "-jpg", "", "-log", "", *flags,
+                                          "stack", *lights])
+    cli.apply_command_defaults(args)
+    c = new_context(log=io.StringIO(), device=DEVICE)
+    if shards:
+        c.mesh = make_mesh([torch.device(DEVICE)] * shards)
+    random.seed(BATCH_SEED)
+    with fastpath.per_frame_path(not shards):
+        t0 = time.perf_counter()
+        cli.run_op(build_command_seq(args), c)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+
 def summarise(path: str) -> dict:
     """Per configuration and phase (and the wall): each side's median and
     quartiles over its runs, and the pairs in which side B was the faster,
@@ -383,7 +423,7 @@ def main(argv=None) -> list:
     ap.add_argument("--out", help="append each JSON line to this file too")
     ap.add_argument("--tag", default="", help="mark of this run's lines in --out")
     ap.add_argument("--summarise", metavar="FILE", help="summarise the A/B lines of FILE")
-    every = CONFIGS + COLOR_CONFIGS + JOB_CONFIGS
+    every = CONFIGS + COLOR_CONFIGS + JOB_CONFIGS + MESH_CONFIGS
     ap.add_argument("--configs", default=",".join(c[0] for c in every),
                     help="comma-separated configurations to run (default: all)")
     ap.add_argument("--cold", action="store_true",
@@ -418,9 +458,11 @@ def main(argv=None) -> list:
             lights[name] = [os.path.relpath(p, work) for p in _fixtures(
                 paths, lambda sub=sub, channels=channels: fixtures.gen_channels(
                     sub, opts.size, seed=7, channels=channels))]
-        for bayer in dict.fromkeys(c[3] for c in CONFIGS if c[0] in chosen):
+        stacks = [c for c in CONFIGS if c[0] in chosen]
+        stacks += [(c[0], c[1], (), None, None) for c in MESH_CONFIGS if c[0] in chosen]
+        for bayer in dict.fromkeys(c[3] for c in stacks):
             sub = os.path.join(work, bayer or "mono")
-            n_max = max(c[1] for c in CONFIGS if c[0] in chosen and c[3] == bayer)
+            n_max = max(c[1] for c in stacks if c[3] == bayer)
             paths = [os.path.join(sub, f"light{i:03d}.fits") for i in range(n_max)]
             lights[bayer] = [os.path.relpath(p, work) for p in _fixtures(
                 paths + [os.path.join(sub, "dark.fits")],
@@ -441,6 +483,8 @@ def main(argv=None) -> list:
             runs.append((name, lights[bayer][:n], flags, "stack"))
         runs += [(name, lights[name], flags, "rgb")
                  for name, _, flags in COLOR_CONFIGS if name in chosen]
+        runs += [(name, lights[None][:n], ("-dark", os.path.join("mono", "dark.fits")),
+                  f"mesh{shards}") for name, n, shards in MESH_CONFIGS if name in chosen]
         for name, kind in (c for c in JOB_CONFIGS if c[0] in chosen):
             st = plan_st_memory(JOB_LIGHTS, opts.size, torch.device(DEVICE), JOB_BATCHES)
             runs.append((name, lights["job16"], ("-stMemory", str(st)), kind))
@@ -448,6 +492,8 @@ def main(argv=None) -> list:
         def run(inputs, out, flags, command):
             if command in ("stack", "rgb"):
                 return run_stack(inputs, out, flags, command)
+            if command.startswith("mesh"):
+                return run_mesh(inputs, out, flags, int(command[4:]))
             with contextlib.chdir(os.path.join(work, "job16")):
                 return run_job(command, out, flags)
 
@@ -464,7 +510,8 @@ def main(argv=None) -> list:
                 wall = run(inputs, f"{name}.fits", flags, command)
             n = len(inputs)
             row = {"config": name, "tag": opts.tag, "lights": n,
-                   "flags": list(flags[2:] if command == "stack" else flags),
+                   "flags": list(flags[2:] if command == "stack" or command.startswith("mesh")
+                                 else flags),
                    "size": opts.size, "cache": "cold" if opts.cold else "warm",
                    "warmup": opts.warmup,
                    "device": torch.cuda.get_device_name(0), "wall_s": wall,
