@@ -56,16 +56,22 @@
    min/mean/max bit for bit a direct read_file.
 5a. The device mesh (nightlight_tpu_torch/parallel/mesh.py), 4 shards on
    cuda:0, on step 4's lights, each frame row-sharded from its load and
-   the per-frame operators run on the shards: shard4_job16,
-   tests/test_rest.py's live-stacking job on 16 lights through `run_op`,
-   and shard4_auto16 and shard4_auto30, the `stack` preset's defaults on
-   16 and 30 lights + dark (mode 3 with K1, mode 5 with K2, the goal-seek
-   on target). Each against the same job unsharded on the per-frame path:
-   every frame placed as 4 blocks of (size/4, size), no gather but
-   detection's copy of each frame and the stacked image (the mesh's
-   gather counter), the log line for line and the output bit for bit,
-   4x the K1/K2 launches and as many K4 launches, each run's wall and
-   peak beside the card's name and power limit;
+   the per-frame operators run on the shards: shard4_detect16, the
+   sharded detector on 16 lights against find_stars on the whole frame,
+   the StarList bit for bit, K4 launched once per shard that holds a
+   candidate, then K4 on the first light's haloed blocks ((size/4 + halo)
+   x size) against its plain version, timed (a row of the kernel table);
+   shard4_job16, tests/test_rest.py's live-stacking job on 16 lights
+   through `run_op`, and shard4_auto16 and shard4_auto30, the `stack`
+   preset's defaults on 16 and 30 lights + dark (mode 3 with K1, mode 5
+   with K2, the goal-seek on target); shard4_stretch, `stretch` on
+   auto16's stack twice, each per-pixel stretch operator taking effect in
+   one of the runs. Each against the same job unsharded (the
+   stacks on the per-frame path): every frame placed as 4 blocks of
+   (size/4, size), no gather but the save's (the mesh's gather counter),
+   the log line for line and the output bit for bit, 4x the K1/K2
+   launches and K4 between 1x and 4x (once per shard with candidates),
+   each run's wall and peak beside the card's name and power limit;
    mesh_step16, run_sharded_full_stack and the halo step that
    sharded_full_pipeline_step_auto picks on 16 lights with the fixture's
    drift, each bit for bit the unsharded _full_pipeline_step, and
@@ -1279,12 +1285,14 @@ def same_lines(log_s: str, log_u: str, outs) -> bool:
 
 
 def sharded_against_unsharded(name: str, fits_mod, size: int, n: int, sharded, unsharded,
-                              outs, kernel: str, record) -> None:
+                              outs, kernel: str, record, keep: bool = False) -> None:
     """The checks of a shard4_* phase: every frame placed as 4 blocks of
-    (size/4, size), no gather but detection's copies and the stacked image,
-    the log line for line and the output bit for bit the unsharded
-    per-frame run's, `kernel` launched 4x as often and K4 as often; each
-    run's wall and peak beside the card."""
+    (size/4, size), no gather but the save's (detection runs on the shards
+    and the stacked image stays row-sharded), the log line for line and the
+    output bit for bit the unsharded per-frame run's, `kernel` launched 4x
+    as often (None: no stacking kernel) and K4 once for each shard that
+    holds a candidate, so between once and 4x as often; each run's wall and
+    peak beside the card. `keep` keeps the outputs."""
     log_s, sec_s, cnt_s, peak_s, gath_s, place_s = sharded
     log_u, sec_u, cnt_u, peak_u, _, _ = unsharded
     shard = check_output(fits_mod, outs[0], size)
@@ -1299,17 +1307,19 @@ def sharded_against_unsharded(name: str, fits_mod, size: int, n: int, sharded, u
     check("Error" not in log_s and "Error" not in log_u, f"{name}: error in a log")
     check(place_s[0] == blocks and all(p == blocks for p in place_s),
           f"{name}: placement {place_s[:2]}")
-    check(gath_s == {"detect": n, "stacked": 1}, f"{name}: gathers {gath_s}")
+    check(gath_s == {"save": 1}, f"{name}: gathers {gath_s}")
     check(lines_equal, f"{name}: log lines differ from the unsharded run")
     check(apart == 0, f"{name}: {apart} pixels apart from the unsharded run")
-    check(cnt_u[kernel] > 0 and cnt_s[kernel] == SHARDS * cnt_u[kernel],
-          f"{name}: {kernel} launches {cnt_s[kernel]} against {cnt_u[kernel]}")
-    check(cnt_s["gather_patches"] == cnt_u["gather_patches"] > 0,
-          f"{name}: gather_patches launches")
+    check(kernel is None or (cnt_u[kernel] > 0 and cnt_s[kernel] == SHARDS * cnt_u[kernel]),
+          f"{name}: {kernel} launches {cnt_s.get(kernel)} against {cnt_u.get(kernel)}")
+    k4_s, k4_u = cnt_s["gather_patches"], cnt_u["gather_patches"]
+    check(0 < k4_u <= k4_s <= SHARDS * k4_u, f"{name}: gather_patches launches {k4_s} "
+                                             f"against {k4_u}")
     record(name, cnt_s, sec_s, peak_s)
     record(f"{name}_unsharded", cnt_u, sec_u, peak_u)
-    for out in outs:
-        os.remove(out)
+    if not keep:
+        for out in outs:
+            os.remove(out)
 
 
 def shard4_job16(cli, fits_mod, kernels, lights, size: int, record) -> None:
@@ -1363,7 +1373,157 @@ def shard4_auto(cli, fits_mod, kernels, lights, size: int, record, n: int, mode:
     check("Reached 0.50% and 0.50% clipping" in log_s, f"{name}: goal-seek off target")
     clipped = re.findall(r"Clipped low \d+ \(([\d.]+)%\) high \d+ \(([\d.]+)%\)", log_s)
     check(clipped == [("0.50", "0.50")], f"{name}: clip line {clipped}")
-    sharded_against_unsharded(name, fits_mod, size, n, sharded, unsharded, outs, kernel, record)
+    sharded_against_unsharded(name, fits_mod, size, n, sharded, unsharded, outs, kernel, record,
+                              keep=n == 16)
+    if n == 16:
+        shard4_stretch(cli, fits_mod, kernels, outs[1], size, record)
+        for out in outs:
+            os.remove(out)
+
+
+# the stretch runs of shard4_stretch on shard4_auto16's stack, each per-pixel
+# stretch operator taking effect in one of them (at the defaults the stack's
+# scale is already below the auto-stretch's target; midtones before gamma
+# leaves negative pixels, whose power is NaN, so they run apart): name,
+# flags, a line of each operator
+SHARD_STRETCHES = (
+    ("shard4_stretch", ("-autoScale", "2", "-gamma", "1.2", "-scaleBlack", "8"),
+     ("applying gamma", "Applying gamma 1.2", "scaling black to move location to 8.00%")),
+    ("shard4_stretch_midtone", ("-autoScale", "2", "-midtone", "20"),
+     ("applying gamma", "Applying midtone correction")),
+)
+
+
+def shard4_stretch(cli, fits_mod, kernels, stacked: str, size: int, record) -> None:
+    """The `stretch` command on a stacked image (shard4_auto16's) with each
+    of SHARD_STRETCHES' flags, through `run_op` with a mesh of 4 shards on
+    cuda:0 and then unsharded: normalize, the auto-stretch's rounds,
+    midtones, gamma and black scaling run on the shards, detection too, and
+    only the save gathers; the log line for line and the output bit for
+    bit the unsharded run's (sharded_against_unsharded)."""
+    from nightlight_tpu_torch.models.presets import build_command_seq
+
+    for name, flags, texts in SHARD_STRETCHES:
+        def op(out):
+            args = cli.build_parser().parse_args(["-out", out, "-jpg", "", "-log", "", *flags,
+                                                  "stretch", stacked])
+            cli.apply_command_defaults(args)
+            return build_command_seq(args)
+
+        outs = (f"{name}.fits", f"{name}_plain.fits")
+        sharded = run_op_on(cli, kernels, op(outs[0]), shard_mesh(), f"chip_smoke_{name}.log")
+        unsharded = run_op_on(cli, kernels, op(outs[1]), None,
+                              f"chip_smoke_{name}_unsharded.log")
+        rounds = [ln for ln in sharded[0].splitlines() if "Linear location" in ln]
+        say(f"{name} ({' '.join(flags)}): rounds {rounds}")
+        check(len(rounds) > 1, f"{name}: no auto-stretch round")
+        for text in texts:
+            check(text in sharded[0], f"{name}: '{text}' missing")
+        sharded_against_unsharded(name, fits_mod, size, 1, sharded, unsharded, outs, None,
+                                  record)
+
+
+def shard4_detect16(fits_mod, gather_cuda, kernels, lights, size: int) -> dict:
+    """The sharded detector (parallel/mesh.py sharded_star_detect, 4 shards
+    on cuda:0) on each of 16 lights at the `stack` preset's detection
+    arguments (radius 16, sigma 15, bad-pixel sigma 5 with the stddev
+    computed, in/out 1.4) against find_stars on the whole frame: the
+    StarList bit for bit, K4 launched once for each shard that holds a
+    candidate. Then K4 on the first light's haloed blocks ((size/4 + 32 or
+    64) x size, the centres of the path) against its plain version, masks
+    equal and in-frame values bit for bit, timed as the other kernel rows.
+    Returns that row of the kernel table."""
+    import torch
+
+    from nightlight_tpu_torch.detect import stars
+    from nightlight_tpu_torch.ops.stats import Stats
+    from nightlight_tpu_torch.parallel import mesh as pmesh
+
+    dev = torch.device(MESH_DEVICE)
+    mesh = shard_mesh()
+    calls = []
+    real = stars.gather_patches
+
+    def spy(img, cys, cxs, radius):
+        calls.append((img, cys, cxs, radius))
+        return real(img, cys, cxs, radius)
+
+    walls = {"sharded": 0.0, "unsharded": 0.0}
+    counts, launches, first = [], [], None
+    for i, name in enumerate(lights[:16]):
+        img = fits_mod.read_file(name, device=dev).data
+        st = Stats(img, size)
+        args = (st.location, st.scale, 15.0, 5.0, 1.4, 16, None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = stars.find_stars(img, *args)
+        torch.cuda.synchronize()
+        walls["unsharded"] += time.perf_counter() - t0
+        x = pmesh.place_on_mesh(img, mesh)
+        calls.clear()
+        kernels.reset_launch_counts()
+        stars.gather_patches = spy
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = pmesh.sharded_star_detect(mesh, 16)(x, *args[:5], None)
+            torch.cuda.synchronize()
+            walls["sharded"] += time.perf_counter() - t0
+        finally:
+            stars.gather_patches = real
+        launched = kernels.launch_counts()["gather_patches"]
+        same = (got[0].count == want[0].count and got[1] == want[1] and all(
+            np.array_equal(getattr(got[0], f), getattr(want[0], f))
+            for f in ("x", "y", "value", "mass", "hfr")))
+        check(same, f"shard4_detect16: light {i}: sharded stars differ from find_stars "
+                    f"({got[0].count} against {want[0].count})")
+        check(launched == len(calls) > 0, f"shard4_detect16: light {i}: {launched} K4 "
+                                          f"launches for {len(calls)} shards with candidates")
+        counts.append(got[0].count)
+        launches.append(launched)
+        if i == 0:
+            first = list(calls)
+        del img, x
+    say(f"shard4_detect16 ({SHARDS} shards on cuda:0; {card_line()}): stars {counts} bit for "
+        f"bit find_stars; K4 launches per frame {launches}; detection {walls['sharded']:.3f} s "
+        f"sharded against {walls['unsharded']:.3f} s whole (16 frames)")
+
+    # K4 on the first light's haloed blocks
+    r = first[0][3]
+    win = 2 * r + 1
+    err, shapes, inside = 0.0, [], 0
+    ms = {"ms": 0.0, "single_call_ms": 0.0}
+    plain_ms = library_ms = 0.0
+    for ext, cys, cxs, _ in first:
+        h, w = ext.shape
+        pk, ok_k = gather_cuda.gather_patches_cuda(ext, cys, cxs, r)
+        pp, ok_p = gather_cuda.patches_plain(ext, cys, cxs, r)
+        torch.cuda.synchronize()
+        check(torch.equal(ok_k, ok_p), f"gather_patches halo block {h}x{w}: masks differ")
+        err = max(err, float(torch.where(ok_k, (pk - pp).abs(),
+                                         torch.zeros((), device=dev)).max()))
+        for key, v in kernel_ms(lambda: gather_cuda.gather_patches_cuda(ext, cys, cxs,
+                                                                        r)).items():
+            ms[key] += v
+        plain_ms += cuda_ms(lambda: gather_cuda.patches_plain(ext, cys, cxs, r))
+        yy, xx, _ = gather_cuda._offsets(cys, cxs, r, h, w)
+        yy_c, xx_c = yy.clamp(0, h - 1), xx.clamp(0, w - 1)
+        library_ms += cuda_ms(lambda: ext[yy_c, xx_c], calls=KERNEL_CALLS)
+        shapes.append([int(cys.shape[0]), h, w])
+        inside += int(ok_k.sum())
+    check(err == 0.0, f"gather_patches halo blocks: kernel vs plain error {err}")
+    k = sum(sh[0] for sh in shapes)
+    work = bound(4.0 * inside + 8.0 * k + (4.0 + 1.0) * k * win * win, 0.0)
+    say(f"gather_patches halo blocks: {len(shapes)} blocks (K, rows, cols) {shapes}, r={r}: "
+        f"max_abs_err {err:.3g} (where ok), masks equal; calls {ms['ms']:.4f} ms "
+        f"({ms['single_call_ms']:.4f} single calls), plain {plain_ms:.3f} ms, ext[yy_c, xx_c] "
+        f"{library_ms:.4f} ms, bound {work['bound_ms']:.5f} ms (all blocks summed)")
+    src, replaces = KERNELS["gather_patches"]
+    return {"name": "gather_patches halo blocks", "kernel": "gather_patches", "route": "cuda",
+            "source": src, "replaces": replaces, "max_abs_err": err, **ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "shape": shapes,
+            "in_frame": inside, **work, "share_of_bound": work["bound_ms"] / ms["ms"],
+            "detect16_walls_s": walls, "detect16_launches": launches}
 
 
 def mesh_step16(fits_mod, kernels, lights, size: int, record) -> None:
@@ -1753,6 +1913,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         # the device mesh (parallel/mesh.py): 4 shards on cuda:0
+        rows.append(shard4_detect16(nlfits, gather_cuda, kernels, lights, size))
         shard4_job16(cli, nlfits, kernels, lights, size, record)
         shard4_auto(cli, nlfits, kernels, lights, size, record, 16, 3, "stack_clip")
         shard4_auto(cli, nlfits, kernels, lights, size, record, 30, 5, "stack_linfit")

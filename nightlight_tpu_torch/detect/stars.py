@@ -18,6 +18,10 @@ runs them on those candidates alone (kept in candidate order, with their
 candidate index for tie-breaks): the results for every surviving candidate
 are the ones the fixed-capacity arrays give, at a fraction of the work.
 The K4 gather still runs over the full capacity, as in the JAX package.
+
+A row-sharded frame (parallel/mesh.py RowSharded) is detected on its shards
+(find_stars_sharded): phases 1-2 and K4 on each shard's block with a halo,
+the candidate lists merged on the lead, which finishes phases 3-6.
 """
 
 from __future__ import annotations
@@ -133,25 +137,37 @@ def _select_tiled(cv, n: int, tiles: int, k: int):
     return vals, torch.gather(flat_i, -1, sel).clamp(max=n - 1)
 
 
-def _select_brightest(cand_vals: torch.Tensor, max_candidates: int):
+def _most_in_a_tile(cand_vals: torch.Tensor, max_candidates: int):
+    """The most candidates in one tile of the tiled selection, over every
+    frame of (B, n) or (n,) candidate maps, as a 0-d device tensor; None
+    when the map's size takes the flat selection."""
+    n = cand_vals.shape[-1]
+    tiles = -(-n // _SELECT_TILE)
+    if n < _SELECT_MIN_N or tiles * _SELECT_KT < 2 * max_candidates:
+        return None
+    pad = tiles * _SELECT_TILE - n
+    v = (torch.nn.functional.pad(cand_vals, (0, pad), value=-float("inf"))
+         if pad else cand_vals)
+    return (v.reshape(*cand_vals.shape[:-1], tiles, _SELECT_TILE) > -float("inf")).sum(-1).max()
+
+
+def _select_brightest(cand_vals: torch.Tensor, max_candidates: int, most=None):
     """Brightest candidates (values, flat indices) of (B, n) candidate maps:
     the tiled selection when no tile of any frame holds more than
     _SELECT_KT candidates, else the flat one -- the same set either way,
-    in the same order (values descending, ties by lower flat index)."""
+    in the same order (values descending, ties by lower flat index).
+    `most`, the host value of _most_in_a_tile when the caller has read it
+    already (else it is read here)."""
     n = cand_vals.shape[-1]
     k = min(max_candidates, n)
     tiles = -(-n // _SELECT_TILE)
-    if n < _SELECT_MIN_N or tiles * _SELECT_KT < 2 * max_candidates:
-        vals, idx = _select_flat(cand_vals, n, k)
+    if most is None:
+        t = _most_in_a_tile(cand_vals, max_candidates)
+        most = None if t is None else int(t)
+    if most is not None and most <= _SELECT_KT:
+        vals, idx = _select_tiled(cand_vals, n, tiles, k)
     else:
-        pad = tiles * _SELECT_TILE - n
-        v = (torch.nn.functional.pad(cand_vals, (0, pad), value=-float("inf"))
-             if pad else cand_vals)
-        per_tile = (v.reshape(*cand_vals.shape[:-1], tiles, _SELECT_TILE) > -float("inf")).sum(-1)
-        if int(per_tile.max()) <= _SELECT_KT:
-            vals, idx = _select_tiled(cand_vals, n, tiles, k)
-        else:
-            vals, idx = _select_flat(cand_vals, n, k)
+        vals, idx = _select_flat(cand_vals, n, k)
     if k < max_candidates:  # tiny images: pad to the fixed capacity
         fill = max_candidates - k
         vals = torch.nn.functional.pad(vals, (0, fill), value=-float("inf"))
@@ -228,45 +244,33 @@ def _hfr(patch, ok, offs, oy, ox, location, radius: int):
     return hfr, mass_safe, inner_mass, pixels, inner_pixels
 
 
-def _find_stars_one(img, location, scale, star_sig, bp_sig, star_in_out, radius: int,
-                    median_diff_std, values, flat_idx):
-    """Phases 2-6 for one frame from its selected candidates. Returns a
-    StarList and the average HFR."""
-    dev = img.device
-    h, w = img.shape
-    f32 = lambda v: _f32(v, dev)  # noqa: E731
-    location, scale = f32(location), f32(scale)
-    star_sig, bp_sig, star_in_out = f32(star_sig), f32(bp_sig), f32(star_in_out)
-    valid = values > -float("inf")
-    cy = torch.div(flat_idx, w, rounding_mode="floor").to(torch.int32)
-    cx = (flat_idx % w).to(torch.int32)
-
-    # phase 2: bad-pixel rejection against the 9-neighbourhood median
-    bp_threshold = f32(median_diff_std) * bp_sig
+def _bad_pixel_ok(img, cy, cx, values, bp_sig, bp_threshold):
+    """Phase 2: whether each candidate passes the bad-pixel test against
+    its 9-neighbourhood median (all pass when bp_sig <= 0)."""
     p9, _ = _patches(img, cy, cx, 1)
     med = median9([p9[:, j // 3, j % 3] for j in range(9)])
     diff = values - med
-    valid &= (bp_sig <= 0.0) | (diff.abs() < bp_threshold)
+    return (bp_sig <= 0.0) | (diff.abs() < bp_threshold)
 
-    # phase 4's patch: K4 over the full candidate capacity
-    big = 2 * radius
-    patch, ok = gather_patches(img, cy, cx, big)
 
-    # phases 3-6 on the phase-2 survivors only (module docstring)
-    keep = torch.nonzero(valid)[:, 0]
-    cand = keep.to(torch.float32)
-    cy_k, cx_k = cy[keep], cx[keep]
+def _finish(location, scale, star_sig, star_in_out, radius: int, cand, cy_k, cx_k, vals_k,
+            patch_k, ok_k):
+    """Phases 3-6 and the compaction for the phase-2 survivors, in
+    candidate order: `cand` their candidate indices (float32), (cy_k, cx_k)
+    their int32 centres in the frame, `vals_k` their values, (patch_k,
+    ok_k) their K4 windows of radius 2r. Returns a StarList and the
+    average HFR."""
+    dev = vals_k.device
     x = cx_k.to(torch.float32)
     y = cy_k.to(torch.float32)
-    vals_k = values[keep]
-    alive = torch.ones(keep.shape[0], dtype=torch.bool, device=dev)
+    alive = torch.ones(cand.shape[0], dtype=torch.bool, device=dev)
     alive = _overlap_filter(x, y, vals_k, alive, cand, float(radius))
     com_threshold = location + scale * star_sig * 0.5
-    x, y, mass, oy, ox, offs = _center_of_mass(patch[keep], ok[keep], cy_k, cx_k,
-                                               com_threshold, radius)
+    x, y, mass, oy, ox, offs = _center_of_mass(patch_k, ok_k, cy_k, cx_k, com_threshold,
+                                               radius)
     alive = _overlap_filter(x, y, mass, alive, cand, float(radius))
     hfr, mass2, inner_mass, pixels, inner_pixels = _hfr(
-        patch[keep], ok[keep], offs, oy, ox, location, radius)
+        patch_k, ok_k, offs, oy, ox, location, radius)
     plausible = hfr <= radius
     outer_mass = mass2 - inner_mass
     outer_pixels = pixels - inner_pixels
@@ -284,6 +288,31 @@ def _find_stars_one(img, location, scale, star_sig, bp_sig, star_in_out, radius:
     stars = StarList(x=packed[0], y=packed[1], value=packed[2], mass=packed[3],
                      hfr=packed[4], count=num)
     return stars, float(avg_hfr)
+
+
+def _find_stars_one(img, location, scale, star_sig, bp_sig, star_in_out, radius: int,
+                    median_diff_std, values, flat_idx):
+    """Phases 2-6 for one frame from its selected candidates. Returns a
+    StarList and the average HFR."""
+    dev = img.device
+    h, w = img.shape
+    f32 = lambda v: _f32(v, dev)  # noqa: E731
+    location, scale = f32(location), f32(scale)
+    star_sig, bp_sig, star_in_out = f32(star_sig), f32(bp_sig), f32(star_in_out)
+    valid = values > -float("inf")
+    cy = torch.div(flat_idx, w, rounding_mode="floor").to(torch.int32)
+    cx = (flat_idx % w).to(torch.int32)
+
+    # phase 2: bad-pixel rejection against the 9-neighbourhood median
+    valid &= _bad_pixel_ok(img, cy, cx, values, bp_sig, f32(median_diff_std) * bp_sig)
+
+    # phase 4's patch: K4 over the full candidate capacity
+    patch, ok = gather_patches(img, cy, cx, 2 * radius)
+
+    # phases 3-6 on the phase-2 survivors only (module docstring)
+    keep = torch.nonzero(valid)[:, 0]
+    return _finish(location, scale, star_sig, star_in_out, radius, keep.to(torch.float32),
+                   cy[keep], cx[keep], values[keep], patch[keep], ok[keep])
 
 
 def find_stars_batch(imgs: torch.Tensor, locations, scales, star_sig: float,
@@ -320,3 +349,105 @@ def find_stars(img: torch.Tensor, location, scale, star_sig: float, bp_sig: floa
                                    bp_sig, star_in_out, radius, [float(median_diff_std)],
                                    max_candidates)
     return stars[0], hfrs[0]
+
+
+def find_stars_sharded(x, location, scale, star_sig: float, bp_sig: float,
+                       star_in_out: float, radius: int, median_diff_std=None,
+                       max_candidates: int = MAX_CANDIDATES):
+    """find_stars of a row-sharded (H, W) image (parallel/mesh.py
+    RowSharded), with the frame left sharded; the same (StarList, avg_hfr)
+    as find_stars on the whole frame, bit for bit.
+
+    Each shard works on its block with a halo of big = 2 x radius rows
+    (mesh.halo; none beyond the frame's first and last rows):
+    phase 1's candidate map of its own rows (the 3x3 maxima read one halo
+    row) and their stable top-k with global flat indices; the lists merged
+    on the lead (mesh.merge_top_k) give find_stars' candidate order. A
+    candidate belongs to the shard that holds its centre row: that shard
+    runs phase 2 on it and K4 on the haloed block with the centre moved by
+    the block's first row. A window of radius big about an own row lies in
+    the haloed block, and where the block's edge is the frame's, K4's
+    in-frame mask and the 3x3 clamp are the whole frame's. A shard without
+    candidates launches nothing. The lead receives each shard's patches
+    and phase-2 verdicts and runs phases 3-6 (_finish) on the survivors in
+    candidate order, the same tensors as find_stars builds: the
+    per-candidate sums of phases 4 and 6 reduce over as many candidates as
+    there, since a reduction's order on a card may depend on that count.
+
+    Host reads: the tile counts of the tiled selection (when a shard is
+    large enough to use it), the merged list, and the phase-2 masks, each
+    once for all shards. With median_diff_std None and bp_sig > 0, the
+    stddev of the image-minus-3x3-median map comes from the shards
+    (ops/prestack.py bad_pixel_stats_sharded). A replicated value is
+    detected on its one copy."""
+    from nightlight_tpu_torch.ops.prestack import bad_pixel_stats_sharded
+    from nightlight_tpu_torch.parallel import mesh as pm
+
+    if x.replicated:
+        return find_stars(x.blocks[0], location, scale, star_sig, bp_sig, star_in_out,
+                          radius, median_diff_std, max_candidates)
+    if median_diff_std is None:
+        median_diff_std = float(bad_pixel_stats_sharded(x)) if bp_sig > 0 else 0.0
+    lead = x.mesh.lead
+    h, w = x.shape
+    rows = h // x.mesh.size
+    big = 2 * radius
+    f32 = lambda v: _f32(v, lead)  # noqa: E731
+    location, scale = f32(location), f32(scale)
+    star_sig, bp_sig, star_in_out = f32(star_sig), f32(bp_sig), f32(star_in_out)
+    threshold = location + scale * star_sig
+    bp_threshold = f32(median_diff_std) * bp_sig
+
+    # phase 1 on every shard, then one read of the tile counts
+    parts = pm.halo(x, big, big)
+    cvs = [_candidate_values(ext, pm._to(threshold, ext.device))[top * w:(top + rows) * w]
+           for ext, top, _ in parts]
+    mosts = [_most_in_a_tile(cv, max_candidates) for cv in cvs]
+    counted = [m for m in mosts if m is not None]
+    read = iter(torch.stack([pm._to(m, lead) for m in counted]).tolist() if counted else [])
+    tops = []
+    for k, (cv, most) in enumerate(zip(cvs, mosts)):
+        vals, idx = _select_brightest(cv, max_candidates, None if most is None else next(read))
+        tops.append((vals, idx + k * rows * w))
+    del cvs
+    vals, idx = pm.merge_top_k(tops, h * w, max_candidates, lead)
+    vals_h, idx_h = vals.cpu().numpy(), idx.cpu().numpy()
+
+    # phase 2 and K4's patches on the shard of each candidate's centre row
+    pos = np.nonzero(vals_h > -np.inf)[0]
+    cy_h, cx_h = np.divmod(idx_h[pos], w)
+    owner = cy_h // rows
+    sent = []
+    for k, (ext, top, _) in enumerate(parts):
+        mine = owner == k
+        if not mine.any():
+            continue
+        dev = ext.device
+        cy = torch.from_numpy((cy_h[mine] - (k * rows - top)).astype(np.int32)).to(dev)
+        cx = torch.from_numpy(cx_h[mine].astype(np.int32)).to(dev)
+        bp_ok = _bad_pixel_ok(ext, cy, cx, torch.from_numpy(vals_h[pos[mine]]).to(dev),
+                              pm._to(bp_sig, dev), pm._to(bp_threshold, dev))
+        patch, ok = gather_patches(ext, cy, cx, big)
+        sent.append((pos[mine], pm._to(patch, lead), pm._to(ok, lead), pm._to(bp_ok, lead)))
+    del parts
+
+    # phases 3-6 on the lead, the survivors in candidate order
+    size = 2 * big + 1
+    if sent:
+        sent_pos = np.concatenate([s[0] for s in sent])
+        survives = torch.cat([s[3] for s in sent]).cpu().numpy()
+        order = np.argsort(sent_pos, kind="stable")
+        order = order[survives[order]]
+        at = torch.from_numpy(order).to(lead)
+        patch_k = torch.cat([s[1] for s in sent])[at]
+        ok_k = torch.cat([s[2] for s in sent])[at]
+        keep = sent_pos[order]
+    else:
+        keep = np.zeros(0, np.int64)
+        patch_k = torch.zeros((0, size, size), dtype=torch.float32, device=lead)
+        ok_k = torch.zeros((0, size, size), dtype=torch.bool, device=lead)
+    cy_k, cx_k = np.divmod(idx_h[keep], w)
+    as_lead = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(lead)  # noqa: E731
+    return _finish(location, scale, star_sig, star_in_out, radius,
+                   as_lead(keep.astype(np.float32)), as_lead(cy_k.astype(np.int32)),
+                   as_lead(cx_k.astype(np.int32)), as_lead(vals_h[keep]), patch_k, ok_k)

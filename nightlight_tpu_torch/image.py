@@ -91,7 +91,7 @@ class Image:
     def like(cls, other: "Image", data=None) -> "Image":
         """New image with the metadata of `other` (fits.go:95-115)."""
         if data is None:
-            data = torch.zeros_like(other.data)
+            data = pm.per_block(torch.zeros_like, other.data)
         img = cls(id=other.id, file_name=other.file_name, header=other.header,
                   bitpix=other.bitpix, bzero=other.bzero, bscale=other.bscale,
                   naxisn=list(other.naxisn), data=data, exposure=other.exposure,

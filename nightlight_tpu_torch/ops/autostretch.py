@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from nightlight_tpu_torch.ops.stats import location_scale, min_mean_max
+from nightlight_tpu_torch.parallel import mesh as pm
 
 # history row layout
 H_LOC, H_SCALE, H_MIN, H_MEAN, H_MAX, H_ACTION, H_PARAM = range(7)
@@ -67,19 +68,25 @@ def stretch_decision(loc, scale, target_loc, target_scale):
     return action, param
 
 
-def auto_stretch(data: torch.Tensor, target_loc, target_scale, max_iter: int = 50):
+def auto_stretch(data, target_loc, target_scale, max_iter: int = 50):
     """The full iterative stretch. Returns (stretched, history, n_iter,
     converged): history a host (n_iter, 7) float32 array; converged False
     when the loop made max_iter transforms and still wanted to continue
-    (the reference's 50-iteration warning)."""
+    (the reference's 50-iteration warning).
+
+    `data` may be row-sharded (parallel/mesh.py RowSharded): each round's
+    statistics then come from the shards (min_max, sum64 and the sampled
+    estimator's take_flat, as ops/stats.py reads them), the lead decides,
+    and the transform runs on each block, the result row-sharded; the
+    same pixels and history as the whole image gives."""
     dev = data.device
     tl, ts = _f32(target_loc, dev), _f32(target_scale, dev)
     rows = []
     d = data
     running = True
     while running and len(rows) < max_iter:
-        flat = d.reshape(1, -1)
-        mn, me, mx = min_mean_max(flat)
+        flat = d if isinstance(d, pm.RowSharded) else d.reshape(1, -1)
+        mn, me, mx = (v.reshape(1) for v in min_mean_max(flat))
         loc, scale = location_scale(flat, mn, mx)
         loc, scale = loc[0], scale[0]
         action, param = stretch_decision(loc, scale, tl, ts)
@@ -87,10 +94,12 @@ def auto_stretch(data: torch.Tensor, target_loc, target_scale, max_iter: int = 5
         rows.append(row)
         act = float(row[H_ACTION])
         if act == ACT_GAMMA:
-            d = torch.pow(d, 1.0 / param)
+            exponent = 1.0 / param
+            d = pm.per_block(lambda b: torch.pow(b, pm._to(exponent, b.device)), d)
         elif act == ACT_BLACK:
             black = (tl - loc) / (tl - 1.0)
             bscale = 1.0 / (1.0 - black)
-            d = ((d - black) * bscale).clamp(min=0.0)
+            d = pm.per_block(lambda b: ((b - pm._to(black, b.device))
+                                        * pm._to(bscale, b.device)).clamp(min=0.0), d)
         running = act in (ACT_GAMMA, ACT_BLACK)
     return d, np.stack(rows).astype(np.float32), len(rows), not running

@@ -142,6 +142,16 @@ def bad_pixel_repair_sharded(x, sigma_low: float, sigma_high: float):
     return pm.RowSharded(x.mesh, x.shape, repaired, x.replicated), n_bad, std
 
 
+def bad_pixel_stats_sharded(x):
+    """The stddev of bad_pixel_stats' difference map of one row-sharded
+    (H, W) frame, shard by shard: each shard's 3x3 median with one halo row
+    from each neighbour (as bad_pixel_repair_sharded), the stddev from the
+    shards' float64 partials (_std), a 0-d float32 tensor on the lead."""
+    diffs = [b - median_filter_3x3(ext)[..., top:top + b.shape[-2], :]
+             for (ext, top, _), b in zip(pm.halo(x, 1, 1), x.blocks)]
+    return _std(diffs, x.numel(), x.mesh.lead)
+
+
 # ---------------------------------------------------------------------------
 # Debayer (bilinear, one channel), debayer.go:26-263
 # ---------------------------------------------------------------------------

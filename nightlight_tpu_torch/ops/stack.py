@@ -151,15 +151,28 @@ def stack(frames: torch.Tensor, mode: StackMode, weights=None, sigma_low: float 
     raise ValueError(f"invalid stacking mode {mode}")
 
 
-def stack_incremental(acc, light: torch.Tensor, weight: float):
-    """Weighted running sum for a stack of stacks (stack.go:924-937)."""
-    w = torch.tensor(float(weight), dtype=torch.float32, device=light.device)
-    return light * w if acc is None else acc + light * w
+def stack_incremental(acc, light, weight: float):
+    """Weighted running sum for a stack of stacks (stack.go:924-937); a
+    row-sharded batch stack (parallel/mesh.py RowSharded) adds up block by
+    block, the sum row-sharded."""
+    from nightlight_tpu_torch.parallel import mesh as pm
+
+    def add(b, a=None):
+        w = torch.tensor(float(weight), dtype=torch.float32, device=b.device)
+        return b * w if a is None else a + b * w
+
+    if isinstance(light, pm.RowSharded):
+        return pm.map_blocks(add, light) if acc is None else pm.map_blocks(add, light, acc)
+    return add(light, acc)
 
 
-def stack_incremental_finalize(acc: torch.Tensor, weight_sum: float) -> torch.Tensor:
-    """Divide by the total weight (stack.go:940-944)."""
-    return acc * torch.tensor(1.0 / weight_sum, dtype=torch.float32, device=acc.device)
+def stack_incremental_finalize(acc, weight_sum: float):
+    """Divide by the total weight (stack.go:940-944), block by block for a
+    row-sharded sum."""
+    from nightlight_tpu_torch.parallel import mesh as pm
+
+    return pm.per_block(lambda a: a * torch.tensor(1.0 / weight_sum, dtype=torch.float32,
+                                                   device=a.device), acc)
 
 
 def get_weights(images, weighting: StackWeighting, device="cpu"):

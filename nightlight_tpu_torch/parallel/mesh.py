@@ -12,21 +12,25 @@ of torch devices (``Mesh``), and writes each collective out as a copy:
 * ``psum`` of counts is a sum of the per-shard int64 counts on the lead
   device (``mesh.devices[0]``); the float reductions (``min_max``,
   ``sum64``) combine per-shard partials there, sums in float64;
-* ``halo`` copies neighbour rows (``Tensor.to(dev, non_blocking=True)``)
-  and tells the caller where the frame ends instead of sending zeros;
+* ``halo`` copies neighbour rows (``Tensor.to(dev, non_blocking=True)``),
+  from as many shards as the halo spans, and tells the caller where the
+  frame ends instead of sending zeros;
   ``ppermute`` in the step functions below sends zeros, as JAX's does to a
   shard without a source;
 * ``take_flat`` gathers single pixels at global flat indices from the
-  shards that own them;
+  shards that own them; ``merge_top_k`` merges per-shard top-k lists on
+  the lead;
 * an all-gather is ``torch.cat`` of the blocks on the lead device
   (``RowSharded.gather``), counted per asking site in ``GATHERS``.
 
 Under ``Context.mesh`` every loaded frame is row-sharded at load
 (``place_on_mesh``; io/fits.py and io/ingest.py upload each shard's rows
 straight to its device), and the per-frame operators of the ``stack`` path
-run on each shard's rows: calibrate, bad-pixel repair, statistics,
-histogram match and the warp (ops/resample.py). ``OpStack`` stacks each
-device's blocks into its block of the batch cube.
+run on each shard's rows: calibrate, bad-pixel repair, statistics, star
+detection (``sharded_star_detect``), histogram match and the warp
+(ops/resample.py). ``OpStack`` stacks each device's blocks into its block
+of the batch cube, and the stacked image stays row-sharded through the
+final detection and the per-pixel stretch operators; the writers gather.
 
 A device may appear more than once in a mesh: the CPU tests run 8 shards on
 the CPU (``make_mesh([torch.device("cpu")] * 8)``, beside JAX's 8 virtual
@@ -196,11 +200,12 @@ def place_on_mesh(data, mesh: Mesh, axis: str = "pix") -> RowSharded:
     on each shard's rows, as XLA's sharding propagation runs the JAX
     package's programs: calibrate, bad-pixel repair (a one-row halo), the
     statistics (reductions of per-shard partials, the sampled estimators
-    through take_flat), histogram match and the warp (a halo of the rows
-    the transform reaches, else the source gathered). Operators that need
-    whole columns or the whole grid (the debands, background extraction,
-    star detection on the lead) take the frame gathered and, where they
-    return an image, place it back."""
+    through take_flat), star detection (a halo of 2 x radius rows, the
+    candidates merged on the lead), histogram match, the warp (a halo of
+    the rows the transform reaches, else the source gathered), and the
+    per-pixel stretch operators. Operators that need whole columns or the
+    whole grid (the debands, background extraction) take the frame
+    gathered and, where they return an image, place it back."""
     if isinstance(data, RowSharded) and data.mesh == mesh:
         if data.replicated == (not divides(mesh, data.shape)):
             return data
@@ -231,31 +236,58 @@ def per_block(fn, data):
     return map_blocks(fn, data) if isinstance(data, RowSharded) else fn(data)
 
 
+def _rows_to(x: RowSharded, start: int, stop: int, device: torch.device) -> list:
+    """Global rows [start, stop) of a row-sharded x, copied to `device`: one
+    part from each shard that holds some of them, in row order."""
+    rows = x.shape[-2] // x.mesh.size
+    parts = []
+    for j in range(start // rows, -(-stop // rows)):
+        lo, hi = max(start, j * rows) - j * rows, min(stop, (j + 1) * rows) - j * rows
+        parts.append(_to(x.blocks[j][..., lo:hi, :], device))
+    return parts
+
+
 def halo(x: RowSharded, above: int, below: int) -> list:
-    """Each shard's block with up to `above` rows of the shard before it and
-    `below` rows of the one after it, copied to its device: a list of
-    (rows, top, bottom), `top`/`bottom` the rows received. The frame's own
-    first and last rows get none (top or bottom 0), not zeros: the caller
-    decides what its edge means. A replicated value is one block, top and
-    bottom 0."""
+    """Each shard's block with up to `above` rows before it and `below`
+    rows after it, copied to its device from as many neighbouring shards as
+    hold them: a list of (rows, top, bottom), `top`/`bottom` the rows
+    received. The frame ends the halo: a shard within `above` rows of the
+    frame's first row receives only the rows above it (top 0 on the first
+    shard), and likewise at the last row; the caller decides what the edge
+    means. A replicated value is one block, top and bottom 0."""
     if x.replicated:
         return [(x.blocks[0], 0, 0)]
-    rows = x.shape[-2] // x.mesh.size
-    if above > rows or below > rows:
-        raise ValueError(f"halo: {above}/{below} rows exceed a shard's {rows}")
+    h = x.shape[-2]
+    rows = h // x.mesh.size
     out = []
-    n = len(x.blocks)
     for k, (dev, b) in enumerate(zip(x.mesh.devices, x.blocks)):
-        parts, top, bottom = [], 0, 0
-        if k > 0 and above:
-            parts.append(_to(x.blocks[k - 1][..., rows - above:, :], dev))
-            top = above
-        parts.append(b)
-        if k + 1 < n and below:
-            parts.append(_to(x.blocks[k + 1][..., :below, :], dev))
-            bottom = below
+        r0 = k * rows
+        top, bottom = min(above, r0), min(below, h - r0 - rows)
+        parts = [*_rows_to(x, r0 - top, r0, dev), b,
+                 *_rows_to(x, r0 + rows, r0 + rows + bottom, dev)]
         out.append((torch.cat(parts, dim=-2) if len(parts) > 1 else b, top, bottom))
     return out
+
+
+def merge_top_k(parts, n: int, k: int, device: torch.device):
+    """The k brightest of per-shard candidate lists, merged on `device`:
+    `parts` holds each shard's (values, global flat indices), and the
+    result is (values, indices), k of each, ordered by value descending,
+    ties by the lower global index, as detect/stars.py _select_brightest
+    orders a whole frame's candidates. An entry whose value is -inf (no
+    candidate) carries index n - 1, and so does the padding up to k."""
+    vals = torch.cat([_to(v, device) for v, _ in parts])
+    idx = torch.cat([_to(i, device).to(torch.int64) for _, i in parts])
+    idx = torch.where(vals > -math.inf, idx, torch.full((), n - 1, device=device))
+    by_index = torch.sort(idx, stable=True).indices
+    vals, idx = vals[by_index], idx[by_index]
+    by_value = torch.sort(vals, descending=True, stable=True).indices[:k]
+    vals, idx = vals[by_value], idx[by_value]
+    if vals.shape[0] < k:
+        fill = k - vals.shape[0]
+        vals = torch.nn.functional.pad(vals, (0, fill), value=-math.inf)
+        idx = torch.nn.functional.pad(idx, (0, fill), value=n - 1)
+    return vals, idx
 
 
 def min_max(x: RowSharded):
@@ -346,17 +378,21 @@ def sharded_star_detect(mesh: Mesh, radius: int = 16, max_candidates: int = 2048
     (StarList, average HFR).
 
     JAX partitions the detector over the mesh, its global reductions
-    becoming collectives. The port all-gathers the rows onto the lead
-    device and runs its unsharded detector there, K4 included: the outputs
-    are a few thousand candidates, small and replicated in both. The frame
-    itself stays sharded (OpStarDetect)."""
-    from nightlight_tpu_torch.detect.stars import find_stars
+    becoming collectives. The port splits it the same way
+    (detect/stars.py find_stars_sharded): each shard finds and ranks the
+    candidates of its rows on a block with a halo of 2 x radius rows, the
+    lists are merged on the lead (merge_top_k), each shard takes the
+    bad-pixel test and K4's patches of the candidates whose centre row it
+    holds, and the lead runs the overlap filters, the centre of mass and
+    the HFR on the patches it receives. No frame is gathered."""
+    from nightlight_tpu_torch.detect.stars import find_stars_sharded
 
     def fn(img, location, scale, star_sig, bp_sig, star_in_out, median_diff_std):
-        return find_stars(gather(img, "detect"), float(location), float(scale),
-                          float(star_sig), float(bp_sig), float(star_in_out), radius,
-                          None if median_diff_std is None else float(median_diff_std),
-                          max_candidates)
+        return find_stars_sharded(place_on_mesh(img, mesh, axis), float(location),
+                                  float(scale), float(star_sig), float(bp_sig),
+                                  float(star_in_out), radius,
+                                  None if median_diff_std is None else float(median_diff_std),
+                                  max_candidates)
 
     return fn
 
@@ -364,18 +400,17 @@ def sharded_star_detect(mesh: Mesh, radius: int = 16, max_candidates: int = 2048
 def sharded_auto_stretch(mesh: Mesh, max_iter: int = 50, axis: str = "pix"):
     """The iterative auto-stretch of a row-sharded image. Returns the
     callable (data, target_loc, target_scale) -> (stretched, history,
-    n_iter, converged), the stretched image row-sharded again.
+    n_iter, converged), the stretched image row-sharded.
 
-    JAX turns the per-round statistics into psums. The port all-gathers the
-    rows onto the lead device and runs its unsharded auto-stretch, whose
-    rounds read back a few scalars each; the result is split by rows
-    again, as JAX's out_shardings place it."""
+    As JAX turns the per-round statistics into psums, each round reads its
+    statistics from the shards (min_max, sum64, the sampled estimator
+    through take_flat) and the lead decides; the gamma or black-point
+    transform then runs on each shard's block (ops/autostretch.py)."""
     from nightlight_tpu_torch.ops.autostretch import auto_stretch
 
     def fn(data, target_loc, target_scale):
-        out, hist, n_iter, converged = auto_stretch(gather(data, "stretch"), target_loc,
-                                                    target_scale, max_iter=max_iter)
-        return place_on_mesh(out, mesh, axis), hist, n_iter, converged
+        return auto_stretch(place_on_mesh(data, mesh, axis), target_loc, target_scale,
+                            max_iter=max_iter)
 
     return fn
 

@@ -106,7 +106,8 @@ class UnaryOperator(Operator):
     Under ``Context.mesh`` a frame's data may be row-sharded
     (parallel/mesh.py RowSharded). An operator whose apply() works on that
     sets ``SHARDED = True``; any other takes the frame gathered whole onto
-    the lead device (``take_whole``), and keeps it whole after."""
+    the lead device (``take_whole``), and keeps it whole after, unless it
+    passes the frame through (``is_noop``)."""
 
     SHARDED = False
 
@@ -120,7 +121,7 @@ class UnaryOperator(Operator):
             f = in_p()
             if f is None:
                 return None
-            if not self.SHARDED:
+            if not self.SHARDED and not self.is_noop():
                 take_whole(f, self.TYPE)
             return self.apply(f, c)
 

@@ -3,10 +3,11 @@ scaleOffset, bin, starDetect, backExtract (reference: internal/ops/pre/),
 mirror of nightlight_tpu/pipeline/ops_pre.py.
 
 Under ``Context.mesh`` each takes a row-sharded frame (parallel/mesh.py
-RowSharded). Calibrate, bad-pixel repair, debayer, scaleOffset and bin run
-on each shard's rows; detection gathers a copy onto the lead device; the
-debands and background extraction, which need whole columns or the whole
-grid, run on the gathered frame and place the result back."""
+RowSharded). Calibrate, bad-pixel repair, debayer, scaleOffset, bin and
+star detection run on each shard's rows (detection with a halo, the
+candidates merged on the lead); the debands and background extraction,
+which need whole columns or the whole grid, run on the gathered frame and
+place the result back."""
 
 from __future__ import annotations
 
@@ -293,16 +294,19 @@ class OpStarDetect(UnaryOperator):
             median_diff_std = f.median_diff_stats.stddev
         args = (f.stats.location, f.stats.scale, self.sigma, self.bad_pixel_sigma,
                 self.in_out_ratio)
-        if isinstance(f.data, pm.RowSharded) and f.data.dim() == 2:
-            # detection runs on a copy gathered onto the lead device, where K4
-            # addresses the whole frame (the JAX package falls back to the
-            # XLA gather under a mesh: a pallas_call cannot address a
-            # row-sharded frame); the frame itself stays sharded
-            f.stars, f.hfr = pm.sharded_star_detect(f.data.mesh, int(self.radius))(
-                f.data, *args, median_diff_std)
+        if isinstance(f.data, pm.RowSharded):
+            # each shard detects on its rows with a halo of 2 x radius rows,
+            # K4 on its haloed block, the lead merges the candidates and
+            # finishes on their patches (the JAX package feeds XLA's gather
+            # under a mesh: a pallas_call cannot address a row-sharded
+            # frame); a cube's first plane is taken block by block
+            plane = f.data
+            if plane.dim() == 3:
+                plane = pm.map_blocks(lambda b: b[0], plane, shape=plane.shape[1:])
+            f.stars, f.hfr = pm.sharded_star_detect(plane.mesh, int(self.radius))(
+                plane, *args, median_diff_std)
         else:
-            data = pm.gather(f.data, "detect")
-            data2d = data if data.dim() == 2 else data[0]
+            data2d = f.data if f.data.dim() == 2 else f.data[0]
             f.stars, f.hfr = find_stars(data2d, *args, int(self.radius), median_diff_std)
         c.logf("%d: Stars %d HFR %.2f %s\n", f.id, f.stars.count, f.hfr, f.stats)
         save = self.save

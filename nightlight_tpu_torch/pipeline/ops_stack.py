@@ -168,12 +168,10 @@ class OpStack(Operator):
                                                sigma_low=self.sigma_low,
                                                sigma_high=self.sigma_high,
                                                ref_frame_loc=self.ref_frame_loc, mesh=c.mesh)
+        # under c.mesh the stacked image stays row-sharded: its statistics,
+        # detection and the stretch operators run on the shards, and the
+        # writers gather it (OpSave)
         del frames
-        if c.mesh is not None:
-            from nightlight_tpu_torch.parallel.mesh import gather
-
-            # the operators after the stack take the image whole
-            data = gather(data, "stacked")
         if mode >= stk.StackMode.Sigma:
             total = len(fs) * fs[0].pixels
             clip_lo, clip_hi = int(clip_lo), int(clip_hi)

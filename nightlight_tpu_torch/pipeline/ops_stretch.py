@@ -2,7 +2,13 @@
 gamma, post-peak gamma, black scaling, gaussian blur, unsharp mask
 (reference: internal/ops/stretch/stretch.go), mirror of
 nightlight_tpu/pipeline/ops_stretch.py. Scalars derived from statistics
-are float32, as the JAX package keeps them on the device."""
+are float32, as the JAX package keeps them on the device.
+
+Under ``Context.mesh`` the operators that are per pixel given scalars
+(normalize, the iterative auto-stretch, midtones, gamma, black scaling) run
+on each shard's block of a row-sharded image, their statistics read from
+the shards (ops/stats.py); the post-peak gamma, the blur and the unsharp
+mask take the image whole."""
 
 from __future__ import annotations
 
@@ -10,6 +16,7 @@ import numpy as np
 
 from nightlight_tpu_torch.image import Image
 from nightlight_tpu_torch.ops import pixelmath as pm
+from nightlight_tpu_torch.parallel.mesh import per_block
 from nightlight_tpu_torch.pipeline.context import Context
 from nightlight_tpu_torch.pipeline.operators import UnaryOperator, register
 
@@ -89,6 +96,7 @@ class OpNormalizeRange(UnaryOperator):
 
     TYPE = "normRange"
     PARAMS = {}
+    SHARDED = True
 
     def apply(self, f: Image, c: Context) -> Image:
         if f.stats is None:
@@ -99,7 +107,7 @@ class OpNormalizeRange(UnaryOperator):
                                  f"{vmin:.4g}, skipping normalization"))
             return f
         c.logf("%s\n", _Text(f"{f.id}: Normalizing from [{vmin:.4g},{vmax:.4g}] to [0,1]"))
-        f.data = pm.normalize(f.data, vmin, vmax)
+        f.data = per_block(lambda b: pm.normalize(b, vmin, vmax), f.data)
         f.stats.set_data(f.data)
         return f
 
@@ -110,6 +118,7 @@ class OpStretchIterative(UnaryOperator):
 
     TYPE = "stretch"
     PARAMS = {"location": ("location", 0.1), "scale": ("scale", 0.004)}
+    SHARDED = True
 
     def apply(self, f: Image, c: Context) -> Image:
         if self.location == 0 and self.scale == 0:
@@ -131,6 +140,7 @@ class OpMidtones(UnaryOperator):
 
     TYPE = "midtones"
     PARAMS = {"mid": ("mid", 0.0), "black": ("black", 1.0)}
+    SHARDED = True
 
     def apply(self, f: Image, c: Context) -> Image:
         if self.mid == 0:
@@ -143,7 +153,7 @@ class OpMidtones(UnaryOperator):
         c.logf("%d: loc %.2f%% scale %.2f%% absMid %.2f%% absBlack %.2f%%\n",
                f.id, loc * _f32(100), scale * _f32(100), abs_mid * _f32(100),
                abs_black * _f32(100))
-        f.data = pm.midtones(f.data, abs_mid, abs_black)
+        f.data = per_block(lambda b: pm.midtones(b, abs_mid, abs_black), f.data)
         f.stats.set_data(f.data)
         return f
 
@@ -154,12 +164,13 @@ class OpGamma(UnaryOperator):
 
     TYPE = "gamma"
     PARAMS = {"gamma": ("gamma", 1.0)}
+    SHARDED = True
 
     def apply(self, f: Image, c: Context) -> Image:
         if self.gamma == 1.0:
             return f
         c.logf("%d: Applying gamma %.3g\n", f.id, self.gamma)
-        f.data = pm.gamma(f.data, self.gamma)
+        f.data = per_block(lambda b: pm.gamma(b, self.gamma), f.data)
         f.stats.set_data(f.data)
         return f
 
@@ -171,8 +182,11 @@ class OpGammaPP(UnaryOperator):
     TYPE = "gammaPP"
     PARAMS = {"gamma": ("gamma", 1.0), "sigma": ("sigma", 1.0)}
 
+    def is_noop(self) -> bool:
+        return self.gamma == 1.0
+
     def apply(self, f: Image, c: Context) -> Image:
-        if self.gamma == 1.0:
+        if self.is_noop():
             return f
         from_ = _f32(f.stats.location) + _f32(self.sigma) * _f32(f.stats.scale)
         to = 1.0
@@ -189,6 +203,7 @@ class OpScaleBlack(UnaryOperator):
 
     TYPE = "scaleBlack"
     PARAMS = {"location": ("location", 0.0)}
+    SHARDED = True
 
     def apply(self, f: Image, c: Context) -> Image:
         if self.location == 0:
@@ -198,7 +213,8 @@ class OpScaleBlack(UnaryOperator):
                scale * _f32(100))
         if loc > self.location:
             c.logf("scaling black to move location to %.2f%%...\n", self.location * 100.0)
-            f.data = pm.shift_black_to_move(f.data, loc, self.location)
+            f.data = per_block(lambda b: pm.shift_black_to_move(b, loc, self.location),
+                               f.data)
         else:
             c.logf("cannot move to location %.2f%% by scaling black\n", self.location * 100.0)
         f.stats.set_data(f.data)
@@ -212,8 +228,11 @@ class OpGaussianBlur(UnaryOperator):
     TYPE = "gaussianBlur"
     PARAMS = {"sigma": ("sigma", 2.0)}
 
+    def is_noop(self) -> bool:
+        return self.sigma == 0
+
     def apply(self, f: Image, c: Context) -> Image:
-        if self.sigma == 0:
+        if self.is_noop():
             return f
         from nightlight_tpu_torch.ops.gauss import gaussian_blur, gaussian_kernel_1d
 
@@ -231,8 +250,11 @@ class OpUnsharpMask(UnaryOperator):
     TYPE = "unsharpMask"
     PARAMS = {"sigma": ("sigma", 1.5), "gain": ("gain", 0.0), "threshold": ("threshold", 1.0)}
 
+    def is_noop(self) -> bool:
+        return self.sigma == 0 or self.gain == 0
+
     def apply(self, f: Image, c: Context) -> Image:
-        if self.sigma == 0 or self.gain == 0:
+        if self.is_noop():
             return f
         from nightlight_tpu_torch.ops.gauss import gaussian_kernel_1d, unsharp_mask
 

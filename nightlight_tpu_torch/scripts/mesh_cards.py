@@ -24,8 +24,11 @@ of its own:
    from its load, the per-frame operators on each card's rows) and
    equals, bit for bit, the `stack` preset run through ``run_op`` with a
    mesh of N shards on ``cuda:0`` and the same job unsharded on the
-   per-frame path (the fused executor found ineligible); its wall and
-   each card's peak memory beside the run without ``-shard``.
+   per-frame path (the fused executor found ineligible); its wall, its
+   star detection's wall (each card synchronised around every detection)
+   and each card's peak memory beside the run without ``-shard`` and the
+   unsharded per-frame run, each timed after one unmeasured run of its
+   own.
 
 The last line is one JSON object of the measured walls and the card's name.
 """
@@ -179,6 +182,44 @@ def reset_peaks(cards: int) -> None:
         torch.cuda.reset_peak_memory_stats(k)
 
 
+@contextlib.contextmanager
+def detection_timed(seconds: dict, key: str):
+    """Add the wall of every star detection (detect/stars.py find_stars,
+    find_stars_batch, find_stars_sharded), each card synchronised before
+    and after, to seconds[key]."""
+    from nightlight_tpu_torch.detect import stars
+
+    names = ("find_stars", "find_stars_batch", "find_stars_sharded")
+    originals = [getattr(stars, name) for name in names]
+    # every module of the port that holds one of them by name
+    holders = [(m, attr, v) for m in list(sys.modules.values())
+               if getattr(m, "__name__", "").startswith("nightlight_tpu_torch")
+               for attr, v in list(vars(m).items())
+               if any(v is fn for fn in originals)]
+    depth = [0]
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            if depth[0]:  # nested in a timed detection
+                return fn(*args, **kwargs)
+            depth[0] += 1
+            try:
+                out, spent = synced(lambda: fn(*args, **kwargs))
+            finally:
+                depth[0] -= 1
+            seconds[key] = seconds.get(key, 0.0) + spent
+            return out
+        return run
+
+    for m, attr, fn in holders:
+        setattr(m, attr, timed(fn))
+    try:
+        yield
+    finally:
+        for m, attr, fn in holders:
+            setattr(m, attr, fn)
+
+
 def cli_over_cards(size: int, lights_n: int, failures: list, walls: dict, peaks: dict) -> None:
     from nightlight_tpu_torch import cli, fixtures
     from nightlight_tpu_torch.io import fits
@@ -197,9 +238,14 @@ def cli_over_cards(size: int, lights_n: int, failures: list, walls: dict, peaks:
         base = ["-dark", "dark.fits", "-jpg", "", "-log", ""]
         logs = {}
         for name, flags in (("plain", ()), ("shard", ("-shard",))):
+            # one unmeasured run first: each card loads the kernels it runs
+            # at their first launch
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(["-out", f"{name}.fits", *base, *flags, "stack", *lights])
             buf = io.StringIO()
             reset_peaks(cards)
-            with contextlib.redirect_stdout(buf):
+            with contextlib.redirect_stdout(buf), detection_timed(walls,
+                                                                  f"detection {name}"):
                 rc, seconds = synced(lambda: cli.main(["-out", f"{name}.fits", *base, *flags,
                                                        "stack", *lights]))
             logs[name] = buf.getvalue()
@@ -217,8 +263,10 @@ def cli_over_cards(size: int, lights_n: int, failures: list, walls: dict, peaks:
                 cli.run_op(build_command_seq(args), c)
 
         preset("one_card.fits", pmesh.make_mesh([card(0)] * cards))
+        preset("per_frame.fits", None)  # unmeasured, as above
         reset_peaks(cards)
-        _, walls["per-frame unsharded"] = synced(lambda: preset("per_frame.fits", None))
+        with detection_timed(walls, "detection per-frame unsharded"):
+            _, walls["per-frame unsharded"] = synced(lambda: preset("per_frame.fits", None))
         peaks["per-frame unsharded"] = peaks_gib(cards)
         shard, one, per_frame, plain = (
             fits.read_file(f).to_numpy()
@@ -232,9 +280,11 @@ def cli_over_cards(size: int, lights_n: int, failures: list, walls: dict, peaks:
             f"shards on cuda:0 {same}, bit for bit the unsharded per-frame run {same_pf}, "
             f"share of pixels apart from the (fused) run without -shard {apart:.6f}; walls "
             f"{walls['cli stack shard']:.3f} s against {walls['cli stack plain']:.3f} s "
-            f"(per-frame unsharded {walls['per-frame unsharded']:.3f} s); peak GiB per card "
-            f"{peaks['cli stack shard']} against {peaks['cli stack plain']} (per-frame "
-            f"{peaks['per-frame unsharded']})")
+            f"(per-frame unsharded {walls['per-frame unsharded']:.3f} s); detection "
+            f"{walls['detection shard']:.3f} s against {walls['detection plain']:.3f} s "
+            f"(per-frame unsharded {walls['detection per-frame unsharded']:.3f} s); peak GiB "
+            f"per card {peaks['cli stack shard']} against {peaks['cli stack plain']} "
+            f"(per-frame {peaks['per-frame unsharded']})")
         if line not in logs["shard"].splitlines() or not same or not same_pf:
             failures.append("cli -shard")
     finally:

@@ -93,7 +93,8 @@ PHASES = {
                                       ("nightlight_tpu_torch.io.fits", "read_file")],
     "fused preprocess": [("nightlight_tpu_torch.models.fastpath", "run_fused_preprocess")],
     "star detection": [("nightlight_tpu_torch.detect.stars", "find_stars_batch"),
-                       ("nightlight_tpu_torch.detect.stars", "find_stars")],
+                       ("nightlight_tpu_torch.detect.stars", "find_stars"),
+                       ("nightlight_tpu_torch.detect.stars", "find_stars_sharded")],
     "calibrate, bad pixel (per frame)": [("nightlight_tpu_torch.pipeline.ops_pre",
                                           "OpCalibrate.apply"),
                                          ("nightlight_tpu_torch.pipeline.ops_pre",
@@ -226,7 +227,9 @@ def phases_wrapped(clock: PhaseClock):
             *outer, name = path.split(".")
             for part in outer:
                 owner = getattr(owner, part)
-            original = getattr(owner, name)
+            original = getattr(owner, name, None)
+            if original is None:  # a tree without this function (a parent)
+                continue
             timed = clock.wrap(phase, original)
             holders = [(owner, name)]
             if not outer:

@@ -480,12 +480,64 @@ class TestHaloAutoDispatch:
         assert "exceeds shard height" in log
 
 
+def _same_stars(got, want):
+    """Two detections equal exactly: the StarList arrays and the average
+    HFR."""
+    (gs, gh), (ws, wh) = got, want
+    assert gs.count == ws.count
+    for name in ("x", "y", "value", "mass", "hfr"):
+        np.testing.assert_array_equal(getattr(gs, name), getattr(ws, name), err_msg=name)
+    assert gh == wh
+
+
+def _detect_case(case, rng):
+    """(image, detection arguments, max_candidates, shards) of a sharded
+    detection case on 256 x 256 frames:
+
+    * boundary: one star's window crosses the boundary of shards 2 and 3
+      (rows 80-111 and 64-95 about centre row 95), one centre on a
+      boundary row (64), one on the last row of a shard (127), one near
+      the frame's top and one near its bottom;
+    * ties: the same star (its pixels copied bit for bit) on shards 1 and
+      5, and two copies in one shard, so the candidate order breaks equal
+      values across shards by the lower flat index;
+    * truncation: a threshold of 2 sigma of the noise, hundreds of local
+      maxima for a capacity of 64, so the cut falls inside the shards'
+      lists;
+    * short_shards: 16 shards of 16 rows, whose halo of 32 rows spans two
+      neighbours on each side."""
+    from tests.test_stars import synth_field
+
+    args = (100.0, 2.0, 10.0)
+    if case == "boundary":
+        stars = [(40.0, 95.3), (120.0, 64.0), (200.0, 127.0), (60.0, 9.0), (150.0, 248.0),
+                 (230.0, 160.0)]
+        img = synth_field(rng, stars=stars, flux=5500.0, fwhm=8.0)
+        return img, args, 128, 8
+    if case == "ties":
+        img = synth_field(rng, stars=[(70.0, 50.0)], flux=5500.0, fwhm=8.0)
+        patch = img[30:71, 50:91].copy()
+        img[170:211, 150:191] = patch   # shard 5, rows 170-210
+        img[30:71, 150:191] = patch     # shard 1 again, same rows
+        return img, args, 128, 8
+    if case == "truncation":
+        img = synth_field(rng, stars=[(60.0, 60.0), (190.0, 200.0)], flux=5500.0, fwhm=8.0)
+        return img, (100.0, 2.0, 2.0), 64, 8
+    stars = [(40.0, 31.5), (120.0, 100.0), (200.0, 176.0), (80.0, 240.0)]
+    img = synth_field(rng, stars=stars, flux=5500.0, fwhm=8.0)
+    return img, args, 128, 16
+
+
 class TestShardedDetectAndStretch:
-    """Detection and the auto-stretch of a row-sharded image: the port
-    gathers the rows onto the lead device and runs its unsharded functions
-    (K4 in the detector on a card)."""
+    """Detection and the auto-stretch of a row-sharded image, each shard
+    on its rows: the detector with a halo of 2 x radius rows, the
+    candidates merged on the lead (K4 on each shard's haloed block on a
+    card), the auto-stretch with each round's statistics from the shards.
+    Both equal the port's unsharded functions exactly, and JAX's sharded
+    ones within the band stated at each test."""
 
     def test_sharded_star_detect_matches(self, mesh, jmesh, rng):
+        from nightlight_tpu_torch.detect.stars import find_stars
         from tests.test_stars import synth_field
 
         stars = [(40.0, 50.0), (120.0, 80.0), (200.0, 200.0), (60.0, 180.0),
@@ -495,13 +547,17 @@ class TestShardedDetectAndStretch:
         sharded = tm.place_on_mesh(torch.from_numpy(img), mesh)
         assert not sharded.replicated
         args = (100.0, 2.0, 10.0, 0.0, 1.4, 1.0)
+        tm.GATHERS.clear()
         got, hfr = tm.sharded_star_detect(mesh, radius=16, max_candidates=128)(sharded, *args)
+        assert not tm.GATHERS
+        # the port's unsharded detector: exactly
+        _same_stars((got, hfr), find_stars(torch.from_numpy(img), *args[:5], 16, args[5], 128))
         jargs = tuple(jnp.float32(a) for a in args)
         want = jm.sharded_star_detect(jmesh, radius=16, max_candidates=128)(
             jm.place_on_mesh(jnp.asarray(img), jmesh), *jargs)
-        # counts exactly; positions to 1e-3 px, masses and HFRs to 1e-4
-        # relative: the centre-of-mass sums run in another float32 order
-        # (tests/test_torch_stars.py)
+        # against JAX: counts exactly; positions to 1e-3 px, masses and HFRs
+        # to 1e-4 relative: the centre-of-mass sums run in another float32
+        # order (tests/test_torch_stars.py)
         assert got.count == int(want[5]) == len(stars)
         n = len(stars)
         np.testing.assert_allclose(got.x, np.asarray(want[0])[:n], atol=1e-3)
@@ -510,16 +566,113 @@ class TestShardedDetectAndStretch:
         np.testing.assert_allclose(got.hfr, np.asarray(want[4])[:n], rtol=1e-4)
         assert hfr == pytest.approx(float(want[6]), rel=1e-4)
 
+    @pytest.mark.parametrize("bp_sig", [0.0, 5.0])
+    @pytest.mark.parametrize("case", ["boundary", "ties", "truncation", "short_shards"])
+    def test_sharded_detector_equals_unsharded(self, case, bp_sig, rng):
+        """The sharded detector against find_stars on the whole frame,
+        exactly, with no gather; at bp_sig 5 the median-difference stddev
+        comes from the shards (None passed to both). Each case's setup
+        (_detect_case) is checked too: stars across and on boundaries, a
+        tie across shards, the capacity cut, halos over two shards."""
+        from nightlight_tpu_torch.detect import stars as tstars
+
+        img, (loc, scale, sig), cap, shards = _detect_case(case, rng)
+        mesh = tm.make_mesh([CPU] * shards)
+        x = tm.place_on_mesh(torch.from_numpy(img), mesh)
+        whole = torch.from_numpy(img)
+        cv = tstars._candidate_values(whole, np.float32(loc + scale * sig))
+        vals, idx = tstars._select_brightest(cv, cap)
+        valid = vals > -np.inf
+        if case == "ties":
+            v = vals[valid].numpy()
+            owners = {int(i) // (256 * 32) for i in idx[valid][np.isin(v, v[0])]}
+            assert (v == v[0]).sum() == 3 and owners == {1, 5}
+        if case == "truncation":
+            assert int((cv > -np.inf).sum()) > 2 * cap and bool(valid.all())
+        tm.GATHERS.clear()
+        got = tm.sharded_star_detect(mesh, radius=16, max_candidates=cap)(
+            x, loc, scale, sig, bp_sig, 1.4, None)
+        assert not tm.GATHERS
+        want = tstars.find_stars(whole, loc, scale, sig, bp_sig, 1.4, 16, None, cap)
+        _same_stars(got, want)
+        near = {"boundary": (95.3, 64.0, 127.0), "short_shards": (31.5, 176.0)}.get(case, ())
+        for y in near:  # the stars on and across shard boundaries are found
+            assert np.abs(got[0].y - y).min() < 1.0, (y, got[0].y)
+
+    def test_merge_top_k_orders_as_the_whole_frame(self, rng):
+        """merge_top_k of per-shard stable top-k lists with global indices
+        gives _select_brightest's order on the whole frame: values
+        descending, ties (many, from integer values) by the lower index,
+        cut at the capacity, whatever order the lists come in; -inf entries
+        and the padding carry n - 1."""
+        from nightlight_tpu_torch.detect import stars as tstars
+
+        h, w, shards, cap = 64, 32, 4, 100
+        v = rng.integers(0, 6, size=h * w).astype(np.float32)
+        v[rng.random(h * w) < 0.9] = -np.inf
+        whole = torch.from_numpy(v)
+        want_v, want_i = tstars._select_brightest(whole, cap)
+        rows = h // shards
+        parts = []
+        for k in range(shards):
+            pv, pi = tstars._select_brightest(whole[k * rows * w:(k + 1) * rows * w], cap)
+            parts.append((pv, pi + k * rows * w))
+        m = want_v > -np.inf
+        assert int(m.sum()) == cap  # the cut falls inside the candidates
+        for order in (parts, parts[::-1]):  # whatever order the lists come in
+            got_v, got_i = tm.merge_top_k(order, h * w, cap, CPU)
+            np.testing.assert_array_equal(got_v.numpy(), want_v.numpy())
+            np.testing.assert_array_equal(got_i[m].numpy(), want_i[m].numpy())
+        # fewer candidates than the capacity: -inf and n - 1 after them
+        few = [(pv[:3], pi[:3]) for pv, pi in parts]
+        fv, fi = tm.merge_top_k(few, h * w, cap, CPU)
+        assert fv.shape == (cap,) and bool((fv[12:] == -np.inf).all())
+        assert bool((fi[12:] == h * w - 1).all())
+
     def test_sharded_auto_stretch_matches(self, mesh, jmesh, rng):
+        from nightlight_tpu_torch.ops.autostretch import auto_stretch
+
         img = rng.normal(0.1, 0.01, size=(64, 64)).astype(np.float32).clip(0, 1)
-        s_out, _, s_n, _ = tm.sharded_auto_stretch(mesh, max_iter=8)(
+        tm.GATHERS.clear()
+        s_out, s_hist, s_n, s_conv = tm.sharded_auto_stretch(mesh, max_iter=8)(
             tm.place_on_mesh(torch.from_numpy(img), mesh), 0.25, 0.05)
+        assert not tm.GATHERS
+        # the port's unsharded auto-stretch: exactly, the result 8 blocks
+        u_out, u_hist, u_n, u_conv = auto_stretch(torch.from_numpy(img), 0.25, 0.05,
+                                                  max_iter=8)
+        assert (s_n, s_conv) == (u_n, u_conv)
+        np.testing.assert_array_equal(s_hist, u_hist)
+        np.testing.assert_array_equal(_np(s_out), u_out.numpy())
         j_out, _, j_n, _ = jm.sharded_auto_stretch(jmesh, max_iter=8)(
             jm.place_on_mesh(jnp.asarray(img), jmesh), jnp.float32(0.25), jnp.float32(0.05))
         assert s_n == int(j_n)
         # test_mesh.py's band: the rounds' statistics reduce in another order
         np.testing.assert_allclose(_np(s_out), np.asarray(j_out), rtol=1e-5, atol=1e-6)
         assert len(s_out.blocks) == 8
+
+    @pytest.mark.parametrize("target", [(0.25, 0.05), (0.02, 0.05)], ids=["gamma", "black"])
+    def test_sharded_auto_stretch_equals_unsharded(self, mesh, rng, target):
+        """A 256 x 256 star field normalised to [0, 1] stretched on 8
+        shards: the rounds' history, the pixels and the round count exactly
+        the unsharded auto-stretch's, the result still 8 blocks of (32,
+        256); the gamma rounds and a black-point shift both taken."""
+        from nightlight_tpu_torch.ops import autostretch as ast
+        from tests.test_stars import synth_field
+
+        img = synth_field(rng, stars=[(40.0, 50.0), (200.0, 120.0)], bg=1000.0, noise=20.0,
+                          flux=80000.0, fwhm=6.0)
+        img = ((img - img.min()) / (img.max() - img.min())).astype(np.float32)
+        tm.GATHERS.clear()
+        s_out, s_hist, s_n, s_conv = tm.sharded_auto_stretch(mesh)(
+            tm.place_on_mesh(torch.from_numpy(img), mesh), *target)
+        assert not tm.GATHERS
+        u_out, u_hist, u_n, u_conv = ast.auto_stretch(torch.from_numpy(img), *target)
+        assert (s_n, s_conv) == (u_n, u_conv) and s_n > 1
+        np.testing.assert_array_equal(s_hist, u_hist)
+        np.testing.assert_array_equal(_np(s_out), u_out.numpy())
+        assert [tuple(b.shape) for b in s_out.blocks] == [(32, 256)] * 8
+        acts = set(s_hist[:, ast.H_ACTION].tolist())
+        assert (ast.ACT_GAMMA if target[0] == 0.25 else ast.ACT_BLACK) in acts
 
     def test_place_on_mesh_replicates_indivisible_rows(self, mesh, jmesh):
         odd = tm.place_on_mesh(torch.zeros(63, 16), mesh)
@@ -617,10 +770,14 @@ class TestMeshContextPipeline:
                                                           monkeypatch):
         """JAX forces the XLA gather under a mesh (a pallas_call cannot
         address global rows of a sharded frame). The port's frame is
-        row-sharded at load; detection gathers a copy onto the lead device
-        (parallel/mesh.py sharded_star_detect), so K4's wrapper
-        (gather_cuda.gather_patches: the kernel on a card) still sees the
-        full frame, and the frame itself stays sharded."""
+        row-sharded at load and detection runs on the shards
+        (parallel/mesh.py sharded_star_detect): K4's wrapper
+        (gather_cuda.gather_patches: the kernel on a card) sees each
+        shard's block with its halo of 2 x radius = 32 rows, (64, 256) at
+        the frame's first and last shard and (96, 256) between, once for
+        each shard that holds a candidate's centre row and for no other.
+        Nothing is gathered, the stars equal the unsharded detector's and
+        the frame stays sharded."""
         from nightlight_tpu_torch.detect import stars as tstars
         from nightlight_tpu_torch.pipeline import ops_pre
         from nightlight_tpu_torch.pipeline.context import new_context
@@ -631,6 +788,7 @@ class TestMeshContextPipeline:
         c = new_context(log=io.StringIO(), device="cpu")
         c.mesh = mesh
         f = OpLoad(id=0, file_name=names[0]).apply(None, c)
+        whole = tm.gather(f.data)
         seen = []
         real = tstars.gather_patches
 
@@ -640,9 +798,20 @@ class TestMeshContextPipeline:
 
         monkeypatch.setattr(tstars, "gather_patches", spy)
         assert isinstance(f.data, tm.RowSharded) and len(f.data.blocks) == 8
-        ops_pre.OpStarDetect(radius=16, sigma=10.0, bad_pixel_sigma=5.0,
-                             in_out_ratio=1.4).apply(f, c)
-        assert seen == [(256, 256)] and f.stars.count > 0
+        tm.GATHERS.clear()
+        op = ops_pre.OpStarDetect(radius=16, sigma=10.0, bad_pixel_sigma=5.0, in_out_ratio=1.4)
+        op.apply(f, c)
+        assert not tm.GATHERS and f.stars.count > 0
+        # the shards that hold a candidate's centre row, from the unsharded
+        # candidate list
+        thr = np.float32(f.stats.location) + np.float32(f.stats.scale) * np.float32(10.0)
+        vals, idx = tstars._select_brightest(tstars._candidate_values(whole, thr), 2048)
+        owners = sorted({int(i) // (32 * 256) for i in idx[vals > -np.inf]})
+        assert 1 < len(owners) <= 8
+        assert seen == [(64 if k in (0, 7) else 96, 256) for k in owners]
+        want = tstars.find_stars(whole, f.stats.location, f.stats.scale, 10.0, 5.0, 1.4, 16,
+                                 f.median_diff_stats.stddev if f.median_diff_stats else None)
+        _same_stars((f.stars, f.hfr), want)
         assert isinstance(f.data, tm.RowSharded) and len(f.data.blocks) == 8
 
     def test_loaded_frame_is_whole_and_the_batch_row_sharded(self, mesh, rng, tmp_path):

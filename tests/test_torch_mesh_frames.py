@@ -97,14 +97,17 @@ def test_place_on_mesh_rows_and_replication(mesh, jmesh, rng):
 
 def test_halo_rows_and_frame_edges(mesh, rng):
     """halo copies the neighbours' boundary rows; the frame's first and last
-    shards receive none on their outer side (a flag, not zeros)."""
+    shards receive none on their outer side (a flag, not zeros). A halo
+    taller than a shard takes its rows from as many shards as it spans (33
+    rows above: two shards; 70 below: three), up to the frame's edge."""
     img = _sky(rng)
     parts = tm.halo(_sharded(mesh, img), 2, 1)
     for k, (ext, top, bottom) in enumerate(parts):
         assert (top, bottom) == ((0 if k == 0 else 2), (0 if k == 7 else 1))
         np.testing.assert_array_equal(ext.numpy(), img[32 * k - top:32 * k + 32 + bottom])
-    with pytest.raises(ValueError):
-        tm.halo(_sharded(mesh, img), 33, 0)
+    for k, (ext, top, bottom) in enumerate(tm.halo(_sharded(mesh, img), 33, 70)):
+        assert (top, bottom) == (min(33, 32 * k), min(70, 224 - 32 * k))
+        np.testing.assert_array_equal(ext.numpy(), img[32 * k - top:32 * k + 32 + bottom])
 
 
 def test_reductions_and_psum(mesh, rng):
@@ -588,8 +591,8 @@ def test_stack_job_sharded_equals_unsharded(mesh, lights16, tmp_path, flags):
     """The `stack` preset under a mesh of 8 CPU shards against the same job
     unsharded on the per-frame path: the same log line for line, each
     frame's lines and the others (the fused-off line's reason aside), and
-    the output bit for bit. A frame is gathered only for its detection (a
-    copy on the lead), and the stacked image after the stack."""
+    the output bit for bit. Detection runs on the shards and the stacked
+    image stays row-sharded: the one gather is the save's."""
     from nightlight_tpu_torch.io import fits as tfits
 
     d, _ = lights16
@@ -599,7 +602,7 @@ def test_stack_job_sharded_equals_unsharded(mesh, lights16, tmp_path, flags):
     log_u = _port_stack(d, str(tmp_path / "u.fits"), flags, None)
     assert "Stacking 8 frames" in log_s and "Error" not in log_s
     assert log_s == log_u
-    assert gathers == {"detect": 8, "stacked": 1}, gathers
+    assert gathers == {"save": 1}, gathers
     a = tfits.read_file(str(tmp_path / "s.fits")).to_numpy()
     b = tfits.read_file(str(tmp_path / "u.fits")).to_numpy()
     np.testing.assert_array_equal(a, b)
@@ -643,7 +646,7 @@ def test_stack_job_sharded_matches_jax_sharded(mesh, jmesh, float_lights, tmp_pa
     d = float_lights
     tm.GATHERS.clear()
     log_t = _run_job(d, str(tmp_path / "t.fits"), mesh)
-    assert dict(tm.GATHERS) == {"detect": 8, "stacked": 1}, dict(tm.GATHERS)
+    assert dict(tm.GATHERS) == {"save": 1}, dict(tm.GATHERS)
     log_u = _run_job(d, str(tmp_path / "u.fits"), None)
     log_j = _run_job(d, str(tmp_path / "j.fits"), jmesh, jax_side=True)
     log_ju = _run_job(d, str(tmp_path / "ju.fits"), None, jax_side=True)
@@ -703,9 +706,9 @@ def test_osc_chain_sharded_equals_unsharded(mesh, osc_lights, tmp_path, flags):
     assert log_s == log_u
     # one frame's transform reaches beyond a shard's 32 rows (its warp
     # gathers the source)
-    allowed = {"detect", "stacked", "warp"} | ({"debandHoriz", "debandVert"}
-                                               if "-debandH" in flags else set())
-    assert set(gathers) <= allowed and gathers["detect"] == 8, gathers
+    allowed = {"save", "warp"} | ({"debandHoriz", "debandVert"}
+                                  if "-debandH" in flags else set())
+    assert set(gathers) <= allowed and gathers["save"] == 1, gathers
     a = tfits.read_file(str(tmp_path / "s.fits")).to_numpy()
     b = tfits.read_file(str(tmp_path / "u.fits")).to_numpy()
     np.testing.assert_array_equal(a, b)
@@ -713,10 +716,12 @@ def test_osc_chain_sharded_equals_unsharded(mesh, osc_lights, tmp_path, flags):
 
 @pytest.mark.parametrize("command,channels", [("rgb", "rgbl"), ("stretch", "l")])
 def test_other_commands_under_mesh(mesh, tmp_path, monkeypatch, command, channels):
-    """`rgb` and `stretch` under a mesh: the channels load row-sharded,
-    detection gathers a copy, and the colour combination and the stretch,
-    which have no sharded form, take the frames whole (counted under their
-    type); log and output equal the unsharded run's."""
+    """`rgb` and `stretch` under a mesh: the channels load row-sharded and
+    detection runs on the shards; the colour combination, which has no
+    sharded form, takes the frames whole (counted under its type), while
+    the stretch (normalize, the auto-stretch, midtones, gamma, black
+    scaling, detection) runs on the shards and only the save gathers; log
+    and output equal the unsharded run's."""
     from nightlight_tpu_torch import cli as tcli
     from nightlight_tpu_torch.fixtures import gen_channels
     from nightlight_tpu_torch.io import fits as tfits
@@ -741,7 +746,44 @@ def test_other_commands_under_mesh(mesh, tmp_path, monkeypatch, command, channel
     log_s = run("s.fits", mesh)
     gathers = dict(tm.GATHERS)
     assert run("u.fits", None) == log_s
-    want = {"detect": 4, "rgbCombine": 4} if command == "rgb" else {"normRange": 1}
+    want = {"rgbCombine": 4} if command == "rgb" else {"save": 1}
     assert gathers == want
+    np.testing.assert_array_equal(tfits.read_file("s.fits").to_numpy(),
+                                  tfits.read_file("u.fits").to_numpy())
+
+
+def test_stretch_chain_under_mesh(mesh, tmp_path, monkeypatch):
+    """`stretch` with every per-pixel stretch operator taking effect (the
+    auto-stretch's gamma rounds, midtones, gamma, black scaling) under a
+    mesh: each runs on the shards, the only gather is the save's, and the
+    log and the output equal the unsharded run's."""
+    from nightlight_tpu_torch import cli as tcli
+    from nightlight_tpu_torch.fixtures import gen_channels
+    from nightlight_tpu_torch.io import fits as tfits
+    from nightlight_tpu_torch.pipeline.context import new_context
+
+    gen_channels(str(tmp_path), H, seed=7)
+    monkeypatch.chdir(tmp_path)
+    flags = ["-autoScale", "2", "-midtone", "20", "-gamma", "1.2", "-scaleBlack", "8"]
+
+    def run(out, m):
+        args = tcli.build_parser().parse_args(["-out", out, "-jpg", "", "-log", "", *flags,
+                                               "stretch", "chan_l.fits"])
+        tcli.apply_command_defaults(args)
+        log = io.StringIO()
+        c = new_context(log=log, device="cpu")
+        c.mesh = m
+        with contextlib.redirect_stdout(io.StringIO()):
+            tcli.run_op(tcli.build_command_seq(args), c)
+        return log.getvalue().replace(out, "OUT")
+
+    tm.GATHERS.clear()
+    log_s = run("s.fits", mesh)
+    gathers = dict(tm.GATHERS)
+    assert run("u.fits", None) == log_s
+    assert gathers == {"save": 1}, gathers
+    for text in ("applying gamma", "Applying midtone correction", "Applying gamma 1.2",
+                 "scaling black to move location to 8.00%"):
+        assert text in log_s, text
     np.testing.assert_array_equal(tfits.read_file("s.fits").to_numpy(),
                                   tfits.read_file("u.fits").to_numpy())
