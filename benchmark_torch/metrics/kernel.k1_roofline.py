@@ -1,0 +1,14 @@
+"""kernel.k1_roofline: the share of its roofline that kernel stack_clip
+(csrc/stack_clip.cu) reached in the profiled jobs of a traced run: the sum
+of each call's bound (roofline.py: the larger of its bytes at the HBM rate
+and its operations at the float32 rate) over the kernel's summed device
+time, in %."""
+
+KERNEL = "stack_clip"
+
+
+def read(rec):
+    k = rec.get("kernels", {}).get(KERNEL)
+    if not k or k["calls"] == 0 or k["device_s"] <= 0:
+        return None
+    return 100.0 * k["bound_s"] / k["device_s"]
