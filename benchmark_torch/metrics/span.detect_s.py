@@ -1,0 +1,14 @@
+"""span.detect_s: seconds a command of the program's "detect" spans (star
+detection: detect/stars.py find_stars_batch, find_stars,
+find_stars_sharded), exclusive of the layer spans nested inside, from the
+program's own spans (nightlight_tpu_torch/trace.py) in the profiled jobs of
+a traced run (benchmark_torch/spans.py), with no synchronisation added. Per
+command: one CLI stack, or one served request (osc16.rgb.n20's job runs
+three commands). None without profiled jobs (off the card) or on a program
+without the tracer."""
+
+from benchmark_torch import spans
+
+
+def read(rec):
+    return spans.layer_s(rec, "detect")

@@ -1173,7 +1173,9 @@ def loader_reuse48(fits_mod, lights) -> None:
     min/mean/max, bit for bit a direct read_file."""
     import torch
 
+    from nightlight_tpu_torch import trace
     from nightlight_tpu_torch.io import ingest
+    from nightlight_tpu_torch.scripts.phase_split import loader_seconds
 
     device = torch.device(OOC_DEVICE)
     ids = {name: i for i, name in enumerate(lights)}
@@ -1181,19 +1183,22 @@ def loader_reuse48(fits_mod, lights) -> None:
     random.Random(OOC_SEED).shuffle(order)
     loader = ingest.ReadAheadLoader.try_create(list(enumerate(lights)), io.StringIO(), device)
     check(loader is not None, "loader_reuse48: try_create refused BITPIX-16 lights")
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        got = {}
-        for name in order:
-            img = loader.get(name)
-            img.stats._ensure_mmm()
-            got[name] = img
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        pinned, inline, reads = loader.pinned_buffers, loader.inline_reads, loader.read_seconds
-    finally:
-        loader.close()
+    with trace.recording():
+        first = len(trace.records())
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = {}
+            for name in order:
+                img = loader.get(name)
+                img.stats._ensure_mmm()
+                got[name] = img
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            pinned, inline = loader.pinned_buffers, loader.inline_reads
+        finally:
+            loader.close()
+        reads = loader_seconds(trace.records()[first:])["workers_read_s"]
     apart = []
     for name in order:
         ref = fits_mod.read_file(name, id=ids[name], log=io.StringIO(), device=device)

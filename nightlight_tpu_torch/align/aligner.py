@@ -24,6 +24,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from nightlight_tpu_torch import trace
+
 MIN_DISTANCE_FRACTION = 1.0 / 20.0
 DIST_SQ_LIMIT = 8.0 * 8.0
 
@@ -108,16 +110,16 @@ def _tris_frame(xs, ys, picked: np.ndarray, combos: np.ndarray, scale: float, de
     """Canonical triangles over the pick slots (aligner.py _tris_device):
     invalid slots and tied sides keep their row with 1e30 sides and zero
     vertices. Sides are scaled by `scale`, vertices are not."""
-    pk_ok = torch.as_tensor(picked >= 0, device=device)
-    sel = torch.as_tensor(np.where(picked >= 0, picked, 0), dtype=torch.int64, device=device)
-    xs_t = torch.as_tensor(xs, dtype=torch.float32, device=device)
-    ys_t = torch.as_tensor(ys, dtype=torch.float32, device=device)
+    pk_ok = trace.upload(picked >= 0, device)
+    sel = trace.upload(np.where(picked >= 0, picked, 0), device, torch.int64)
+    xs_t = trace.upload(xs, device, torch.float32)
+    ys_t = trace.upload(ys, device, torch.float32)
     zero = torch.zeros((), device=device)
     px = torch.where(pk_ok, xs_t[sel], zero)
     py = torch.where(pk_ok, ys_t[sel], zero)
-    sc = torch.tensor(float(scale), dtype=torch.float32, device=device)
+    sc = trace.upload(float(scale), device, torch.float32)
     sx, sy = px * sc, py * sc
-    cb = torch.tensor(combos, dtype=torch.int64, device=device)
+    cb = trace.upload(combos, device, torch.int64)
     i, j, k3 = cb[:, 0], cb[:, 1], cb[:, 2]
 
     def dist(a, b):
@@ -239,12 +241,16 @@ def _search(tri_sides, tri_pts, ref_sides, ref_tri_pts, pts, ref_pts, n_stars: f
     ry = d_[:, None] * X + e[:, None] * Y + f[:, None] - q[:, :, 1]
     rr = torch.where(m, rx * rx + ry * ry, zero)
     residual = torch.sqrt(rr.sum(1)) / cntf
-    n_third = torch.tensor(n_stars, dtype=torch.float32, device=dev) / 3.0
+    n_third = trace.upload(n_stars, dev, torch.float32) / 3.0
     valid = ((cnt.to(torch.float32) >= n_third) & (distinct >= min_distinct) & det_ok
              & torch.isfinite(t0).all(dim=1))
     res_all = torch.where(valid, residual, torch.full((), float("inf"), device=dev))
     best = torch.argmin(res_all)
-    return refined[best], res_all[best]
+    # indexing by a 0-d device tensor reads it: two reads
+    with trace.host_read(dev):
+        trans = refined[best]
+    with trace.host_read(dev):
+        return trans, res_all[best]
 
 
 class Aligner:
@@ -262,10 +268,11 @@ class Aligner:
         self.ref_tri_sides, self.ref_tris = generate_triangles(ref_stars.x, ref_stars.y, idx, 1.0)
         ref_tri_pts = (self.ref_pts[self.ref_tris] if len(self.ref_tris)
                        else np.zeros((0, 3, 2), np.float32))
-        self._ref_sides = torch.as_tensor(self.ref_tri_sides, device=self.device)
-        self._ref_tri_pts = torch.as_tensor(ref_tri_pts, device=self.device)
-        self._ref_pts = torch.as_tensor(self.ref_pts, device=self.device)
+        self._ref_sides = trace.upload(self.ref_tri_sides, self.device)
+        self._ref_tri_pts = trace.upload(ref_tri_pts, self.device)
+        self._ref_pts = trace.upload(self.ref_pts, self.device)
 
+    @trace.span("align")
     def align_batch(self, frames_meta):
         """Align frames given as (naxisn, StarList) with >= 3 stars each, the
         whole-batch path of the JAX package (device pick and triangles).
@@ -280,13 +287,14 @@ class Aligner:
             picked = _pick_frame(xs, ys, ml2, self.k)
             scale = np.float32(float(self.naxisn[0]) / float(naxisn[0]))
             tri_sides, tri_pts = _tris_frame(xs, ys, picked, combos, scale, self.device)
-            pts = torch.as_tensor(np.stack([xs, ys], axis=-1).astype(np.float32),
-                                  device=self.device)
+            pts = trace.upload(np.stack([xs, ys], axis=-1).astype(np.float32), self.device)
             trans, res = _search(tri_sides, tri_pts, self._ref_sides, self._ref_tri_pts,
                                  pts, self._ref_pts, float(n), self.k)
-            out.append((trans.cpu().numpy().astype(np.float32), float(res)))
+            out.append((trace.to_host(trans).numpy().astype(np.float32),
+                        float(trace.to_host(res))))
         return out
 
+    @trace.span("align")
     def align_one(self, naxisn, stars):
         """Align one frame through the host-side pick and compacted triangle
         list (aligner.py align_deferred). Returns (trans, residual) or None
@@ -300,9 +308,9 @@ class Aligner:
         if len(tris) == 0:
             return None
         pts = np.stack([stars.x, stars.y], axis=-1).astype(np.float32)
-        trans, res = _search(torch.as_tensor(tri_sides, device=self.device),
-                             torch.as_tensor(pts[tris], device=self.device),
+        trans, res = _search(trace.upload(tri_sides, self.device),
+                             trace.upload(pts[tris], self.device),
                              self._ref_sides, self._ref_tri_pts,
-                             torch.as_tensor(pts, device=self.device), self._ref_pts,
+                             trace.upload(pts, self.device), self._ref_pts,
                              float(len(stars)), self.k)
-        return trans.cpu().numpy().astype(np.float32), float(res)
+        return trace.to_host(trans).numpy().astype(np.float32), float(trace.to_host(res))

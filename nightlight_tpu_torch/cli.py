@@ -19,6 +19,7 @@ matrix products and cuDNN so float32 math stays float32.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -26,7 +27,7 @@ import time
 
 import torch
 
-from nightlight_tpu_torch import __version__
+from nightlight_tpu_torch import __version__, trace
 from nightlight_tpu_torch.models.presets import build_command_seq
 from nightlight_tpu_torch.ops.stats import LSEstimatorMode
 from nightlight_tpu_torch.utils.logging import MultiWriter, auto_fill
@@ -63,7 +64,12 @@ def build_parser() -> argparse.ArgumentParser:
     a("-setuid", type=int, default=-1, help="user id number to setuid to when serving HTTP. must be run as root")
     a("-job", default="", help="JSON job specification to run")
     a("-trace", default="", help="write a torch.profiler trace of the run to this directory"
-      " (the analog of the reference's -cpuprofile/-memprofile)")
+      " (the analog of the reference's -cpuprofile/-memprofile): DIR/trace.json holds the"
+      " profiler's host and device events and, on the same clock, the program's spans (a lane"
+      " 'nightlight spans: <thread>' for each thread: command, load, preprocess, perframe,"
+      " detect, align, warp, stack, save, host_read) and its counters (host.reads by layer,"
+      " detect.candidates: the candidates that survive detection's phase 2, kernel"
+      " launches); its \"nightlight\" entry gives the clock anchors' offsets and their drift")
     a("-shard", action="store_true",
       help="row-shard frames across all attached devices (parallel.mesh device mesh):"
       " each frame is loaded by rows onto the cards, calibrate, bad-pixel repair,"
@@ -300,11 +306,29 @@ is an independent rebuild.
 
 def main(argv=None, device=None) -> int:
     """Run the CLI on `device` (default cuda:0). Without a CUDA device it
-    raises unless the caller passes device="cpu"."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    raises unless the caller passes device="cpu". The command is one span
+    of the program's tracer (trace.py); with -trace DIR its spans are
+    recorded and written into DIR/trace.json beside the profiler's events."""
     parser = build_parser()
     args = parser.parse_args(argv)
+    session = {}  # the -trace profiler and its first clock anchor
+    with trace.recording() if args.trace else contextlib.nullcontext():
+        try:
+            with trace.command() as command_id:
+                return _run(parser, args, device, session)
+        finally:
+            if session:  # the profiler ran: stop it and write the trace
+                anchors = [session["anchor"], trace.anchor("end")]
+                profiler = session["profiler"]
+                profiler.__exit__(None, None, None)
+                path = os.path.join(args.trace, "trace.json")
+                profiler.export_chrome_trace(path)
+                trace.write_chrome_trace(path, anchors, command_id)
+
+
+def _run(parser, args, device, session: dict) -> int:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     start = time.time()
 
     log_writer = sys.stdout
@@ -313,10 +337,6 @@ def main(argv=None, device=None) -> int:
     if args.log:
         log_file = open(args.log, "w")
         log_writer = MultiWriter(sys.stdout, log_file)
-    if os.environ.get("NIGHTLIGHT_LOG_TIMES"):
-        from nightlight_tpu_torch.utils.logging import TimestampWriter
-
-        log_writer = TimestampWriter(log_writer)
 
     args.jpg = auto_fill(args.jpg, args.out, ".jpg")
     args.tiff = auto_fill(args.tiff, args.out, ".tif")
@@ -355,7 +375,6 @@ def main(argv=None, device=None) -> int:
             log_writer.write("-shard requested but only one device attached; "
                              "running unsharded\n")
 
-    profiler = None
     try:
         if pipeline:
             c = new_context(log=log_writer, st_memory=args.stMemory,
@@ -367,6 +386,8 @@ def main(argv=None, device=None) -> int:
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
                 profiler = torch.profiler.profile(activities=activities)
                 profiler.__enter__()
+                session.update(profiler=profiler, anchor=trace.anchor("start"))
+                os.makedirs(args.trace, exist_ok=True)
             if cmd == "run":
                 from nightlight_tpu_torch.pipeline import op_from_dict
 
@@ -399,10 +420,6 @@ def main(argv=None, device=None) -> int:
         log_writer.write(f"Error: {e}\n")
         return -1
     finally:
-        if profiler is not None:
-            profiler.__exit__(None, None, None)
-            os.makedirs(args.trace, exist_ok=True)
-            profiler.export_chrome_trace(os.path.join(args.trace, "trace.json"))
         if log_file is not None:
             log_file.flush()
 

@@ -31,6 +31,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from nightlight_tpu_torch import trace
 from nightlight_tpu_torch.ops.gather_cuda import gather_patches, patches_plain
 from nightlight_tpu_torch.ops.prestack import bad_pixel_stats, median9
 
@@ -62,7 +63,7 @@ class StarList:
 
 
 def _f32(v, device) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.float32, device=device)
+    return trace.upload(v, device, torch.float32)
 
 
 def _patches(img, cys, cxs, radius: int):
@@ -90,7 +91,7 @@ def _overlap_filter(x, y, mass, valid, idx, radius: float):
     alive = valid
     while True:
         new_alive = valid & ~(dominates & alive[None, :]).any(dim=1)
-        if bool((new_alive == alive).all()):
+        if bool(trace.to_host((new_alive == alive).all())):
             return new_alive
         alive = new_alive
 
@@ -163,7 +164,7 @@ def _select_brightest(cand_vals: torch.Tensor, max_candidates: int, most=None):
     tiles = -(-n // _SELECT_TILE)
     if most is None:
         t = _most_in_a_tile(cand_vals, max_candidates)
-        most = None if t is None else int(t)
+        most = None if t is None else int(trace.to_host(t))
     if most is not None and most <= _SELECT_KT:
         vals, idx = _select_tiled(cand_vals, n, tiles, k)
     else:
@@ -280,14 +281,14 @@ def _finish(location, scale, star_sig, star_in_out, radius: int, cand, cy_k, cx_
 
     sort_key = torch.where(alive, -mass2, torch.full((), float("inf"), device=dev))
     order = torch.argsort(sort_key, stable=True)
-    num = int(alive.sum())
+    num = int(trace.to_host(alive.sum()))
     avg_hfr = (torch.where(alive, hfr, torch.zeros((), device=dev)).sum()
                / max(num, 1))
     sel = order[:num]
-    packed = torch.stack([x[sel], y[sel], vals_k[sel], mass2[sel], hfr[sel]]).cpu().numpy()
+    packed = trace.to_host(torch.stack([x[sel], y[sel], vals_k[sel], mass2[sel], hfr[sel]])).numpy()
     stars = StarList(x=packed[0], y=packed[1], value=packed[2], mass=packed[3],
                      hfr=packed[4], count=num)
-    return stars, float(avg_hfr)
+    return stars, float(trace.to_host(avg_hfr))
 
 
 def _find_stars_one(img, location, scale, star_sig, bp_sig, star_in_out, radius: int,
@@ -310,11 +311,14 @@ def _find_stars_one(img, location, scale, star_sig, bp_sig, star_in_out, radius:
     patch, ok = gather_patches(img, cy, cx, 2 * radius)
 
     # phases 3-6 on the phase-2 survivors only (module docstring)
-    keep = torch.nonzero(valid)[:, 0]
+    with trace.host_read(valid.device):
+        keep = torch.nonzero(valid)[:, 0]
+    trace.count("detect.candidates", n=int(keep.shape[0]))
     return _finish(location, scale, star_sig, star_in_out, radius, keep.to(torch.float32),
                    cy[keep], cx[keep], values[keep], patch[keep], ok[keep])
 
 
+@trace.span("detect")
 def find_stars_batch(imgs: torch.Tensor, locations, scales, star_sig: float,
                      bp_sig: float, star_in_out: float, radius: int, median_diff_stds,
                      max_candidates: int = MAX_CANDIDATES):
@@ -337,6 +341,7 @@ def find_stars_batch(imgs: torch.Tensor, locations, scales, star_sig: float,
     return stars, hfrs
 
 
+@trace.span("detect")
 def find_stars(img: torch.Tensor, location, scale, star_sig: float, bp_sig: float,
                star_in_out: float, radius: int, median_diff_std=None,
                max_candidates: int = MAX_CANDIDATES):
@@ -344,13 +349,14 @@ def find_stars(img: torch.Tensor, location, scale, star_sig: float, bp_sig: floa
     With median_diff_std None and bp_sig > 0, the stddev of the
     image-minus-3x3-median map is computed here."""
     if median_diff_std is None:
-        median_diff_std = float(bad_pixel_stats(img)[1]) if bp_sig > 0 else 0.0
+        median_diff_std = float(trace.to_host(bad_pixel_stats(img)[1])) if bp_sig > 0 else 0.0
     stars, hfrs = find_stars_batch(img[None], [float(location)], [float(scale)], star_sig,
                                    bp_sig, star_in_out, radius, [float(median_diff_std)],
                                    max_candidates)
     return stars[0], hfrs[0]
 
 
+@trace.span("detect")
 def find_stars_sharded(x, location, scale, star_sig: float, bp_sig: float,
                        star_in_out: float, radius: int, median_diff_std=None,
                        max_candidates: int = MAX_CANDIDATES):
@@ -387,7 +393,8 @@ def find_stars_sharded(x, location, scale, star_sig: float, bp_sig: float,
         return find_stars(x.blocks[0], location, scale, star_sig, bp_sig, star_in_out,
                           radius, median_diff_std, max_candidates)
     if median_diff_std is None:
-        median_diff_std = float(bad_pixel_stats_sharded(x)) if bp_sig > 0 else 0.0
+        median_diff_std = (float(trace.to_host(bad_pixel_stats_sharded(x))) if bp_sig > 0
+                           else 0.0)
     lead = x.mesh.lead
     h, w = x.shape
     rows = h // x.mesh.size
@@ -404,14 +411,15 @@ def find_stars_sharded(x, location, scale, star_sig: float, bp_sig: float,
            for ext, top, _ in parts]
     mosts = [_most_in_a_tile(cv, max_candidates) for cv in cvs]
     counted = [m for m in mosts if m is not None]
-    read = iter(torch.stack([pm._to(m, lead) for m in counted]).tolist() if counted else [])
+    read = iter(trace.to_host(torch.stack([pm._to(m, lead) for m in counted])).tolist()
+                if counted else [])
     tops = []
     for k, (cv, most) in enumerate(zip(cvs, mosts)):
         vals, idx = _select_brightest(cv, max_candidates, None if most is None else next(read))
         tops.append((vals, idx + k * rows * w))
     del cvs
     vals, idx = pm.merge_top_k(tops, h * w, max_candidates, lead)
-    vals_h, idx_h = vals.cpu().numpy(), idx.cpu().numpy()
+    vals_h, idx_h = trace.to_host(vals).numpy(), trace.to_host(idx).numpy()
 
     # phase 2 and K4's patches on the shard of each candidate's centre row
     pos = np.nonzero(vals_h > -np.inf)[0]
@@ -435,7 +443,7 @@ def find_stars_sharded(x, location, scale, star_sig: float, bp_sig: float,
     size = 2 * big + 1
     if sent:
         sent_pos = np.concatenate([s[0] for s in sent])
-        survives = torch.cat([s[3] for s in sent]).cpu().numpy()
+        survives = trace.to_host(torch.cat([s[3] for s in sent])).numpy()
         order = np.argsort(sent_pos, kind="stable")
         order = order[survives[order]]
         at = torch.from_numpy(order).to(lead)
@@ -446,6 +454,7 @@ def find_stars_sharded(x, location, scale, star_sig: float, bp_sig: float,
         keep = np.zeros(0, np.int64)
         patch_k = torch.zeros((0, size, size), dtype=torch.float32, device=lead)
         ok_k = torch.zeros((0, size, size), dtype=torch.bool, device=lead)
+    trace.count("detect.candidates", n=len(keep))
     cy_k, cx_k = np.divmod(idx_h[keep], w)
     as_lead = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(lead)  # noqa: E731
     return _finish(location, scale, star_sig, star_in_out, radius,

@@ -20,6 +20,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from nightlight_tpu_torch import trace
 from nightlight_tpu_torch.ops.stats import Stats
 from nightlight_tpu_torch.parallel import mesh as pm
 
@@ -129,7 +130,8 @@ class Image:
     def to_numpy(self) -> np.ndarray:
         """The pixels on the host (a row-sharded image gathered)."""
         data = pm.gather(self.data, "to_numpy")
-        return data.detach().to("cpu", torch.float32).numpy()
+        with trace.host_read(data.device):
+            return data.detach().to("cpu", torch.float32).numpy()
 
 
 def bin_block_mean(d: torch.Tensor, n: int) -> torch.Tensor:

@@ -31,6 +31,7 @@ from typing import BinaryIO
 import numpy as np
 import torch
 
+from nightlight_tpu_torch import trace
 from nightlight_tpu_torch.image import FITS_BLOCK_SIZE, HEADER_LINE_SIZE, Header, Image
 from nightlight_tpu_torch.ops.stats import Stats
 from nightlight_tpu_torch.parallel import mesh as pm
@@ -64,6 +65,7 @@ _BITPIX_DTYPES = {
 }
 
 
+@trace.span("load")
 def read_file(file_name: str, id: int = 0, log=None, read_data: bool = True,
               device="cpu", mesh=None) -> Image:
     """Read a FITS (or TIFF) image from a file (read.go:34-73), its pixels
@@ -187,7 +189,7 @@ def _read_payload(img: Image, f: BinaryIO, pixels: int, log, device, mesh=None) 
         if slices is not None:
             return attach_raw_sharded(img, [pm._to(s, dev) for s, dev
                                             in zip(slices, mesh.devices)], mesh)
-        return attach_raw(img, buf.to(device))
+        return attach_raw(img, trace.upload(buf, device))
 
     raw = f.read(pixels * dtype.itemsize)
     if len(raw) < pixels * dtype.itemsize:
@@ -304,8 +306,8 @@ def decode_raw(raw: torch.Tensor, bitpix: int, bscale: float, bzero: float) -> t
         ints = torch.where(swapped >= 0x8000, swapped - 0x10000, swapped)
     else:
         ints = raw
-    scale = torch.tensor(float(bscale), dtype=torch.float32, device=raw.device)
-    zero = torch.tensor(float(bzero), dtype=torch.float32, device=raw.device)
+    scale = trace.upload(float(bscale), raw.device, torch.float32)
+    zero = trace.upload(float(bzero), raw.device, torch.float32)
     return ints.to(torch.float32) * scale + zero
 
 
@@ -323,6 +325,7 @@ def decode_payload(raw: bytes, dtype: np.dtype, pixels: int, bscale: float, bzer
 # ---------------------------------------------------------------------------
 
 
+@trace.span("save")
 def write_file(img: Image, file_name: str) -> None:
     """Write an Image to a FITS file, gzip if suffixed (write.go:32-50)."""
     lower = file_name.lower()
@@ -364,16 +367,19 @@ def write(img: Image, f: BinaryIO) -> None:
     pad = len(header) % FITS_BLOCK_SIZE
     if pad > 0:
         header += " " * (FITS_BLOCK_SIZE - pad)
-    f.write(header.encode("ascii"))
 
     # payload: float32 big-endian, NaNs replaced with zeros (write.go:182-215)
-    data = img.to_numpy().reshape(-1)
-    data = np.nan_to_num(data, nan=0.0, posinf=None, neginf=None)
-    payload = data.astype(">f4").tobytes()
-    f.write(payload)
-    tail = len(payload) % FITS_BLOCK_SIZE
-    if tail != 0:
-        f.write(b" " * (FITS_BLOCK_SIZE - tail))
+    with trace.span("save.fetch"):
+        data = img.to_numpy().reshape(-1)
+    with trace.span("save.encode"):
+        data = np.nan_to_num(data, nan=0.0, posinf=None, neginf=None)
+        payload = data.astype(">f4").tobytes()
+    with trace.span("save.write"):
+        f.write(header.encode("ascii"))
+        f.write(payload)
+        tail = len(payload) % FITS_BLOCK_SIZE
+        if tail != 0:
+            f.write(b" " * (FITS_BLOCK_SIZE - tail))
 
 
 def _fmt(key: str, value: str, comment: str) -> str:

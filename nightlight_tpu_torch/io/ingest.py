@@ -38,9 +38,10 @@ import contextlib
 import io
 import math
 import threading
-import time
 
 import torch
+
+from nightlight_tpu_torch import trace
 
 # raw payload bytes read ahead of consumption: BulkUploader's window of
 # WINDOW groups of GROUP_BYTES, twice (nightlight_tpu/io/ingest.py:373)
@@ -50,6 +51,9 @@ WINDOW_BYTES = 6 * (32 << 20) * 2
 # operators.py:279)
 DEPTH = 3
 LOOKAHEAD = 6
+_PIN = trace.span("load.pin")
+_READ = trace.span("load.read")
+_WAIT = trace.span("load.wait")
 
 
 class _Frame:
@@ -79,7 +83,6 @@ class _PinnedPool:
         self._count = 0
         self._cond = threading.Condition()
         self.pinned = 0  # buffers pinned over the pool's life
-        self.pin_seconds = 0.0  # spent pinning them
 
     def acquire(self, nbytes: int) -> torch.Tensor:
         with self._cond:
@@ -94,9 +97,9 @@ class _PinnedPool:
                     self._free.pop(0)
                     break
                 self._cond.wait()
-        t0 = time.perf_counter()
         try:
-            buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            with _PIN:
+                buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
         except BaseException:
             with self._cond:
                 self._count -= 1
@@ -104,7 +107,6 @@ class _PinnedPool:
             raise
         with self._cond:
             self.pinned += 1
-            self.pin_seconds += time.perf_counter() - t0
         return buf
 
     def release(self, buf: torch.Tensor) -> None:
@@ -166,9 +168,8 @@ class ReadAheadLoader:
         self._running = False
         self._closed = False
         self._cond = threading.Condition()
-        self.read_seconds = 0.0  # summed over the workers' reads
         self.inline_reads = 0  # frames the consumer had to read itself
-        self.wait_seconds = 0.0  # the consumer's waits for a worker's read
+        self._command = trace.current_command()  # the one the readers work for
         self._stream = self._pool = None
         self._streams = {}  # a side stream per CUDA device copied to
         if self.device.type == "cuda":
@@ -207,11 +208,6 @@ class ReadAheadLoader:
         """Pinned buffers allocated so far (0 off a CUDA device)."""
         return self._pool.pinned if self._pool is not None else 0
 
-    @property
-    def pin_seconds(self) -> float:
-        """Seconds the readers spent pinning those buffers."""
-        return self._pool.pin_seconds if self._pool is not None else 0.0
-
     def reorder(self, names: list[str]) -> None:
         """Announce the upcoming consumption order (one out-of-core batch):
         readers take these frames next, then the rest in spec order."""
@@ -242,6 +238,7 @@ class ReadAheadLoader:
                     admitted += 1
         return admitted
 
+    @trace.span("load")
     def get(self, name: str):
         """The decoded Image of `name` on the loader's device. A name not in
         the specs, or taken before, is read directly (io/fits.read_file)."""
@@ -262,16 +259,16 @@ class ReadAheadLoader:
                 if not fr.started:  # claim it from the readers
                     fr.started = inline = True
                     self.inline_reads += 1
+                    trace.count("load.inline_reads")
         if not managed:
             return read_file(name, id=self._ids.get(name, 0), log=self._log,
                              device=self.device, mesh=self._mesh)
         if inline:
-            self._read(name, fr, inline=True)
-        t0 = time.perf_counter()
-        fr.done.wait()
+            self._read(name, fr)
+        else:
+            with _WAIT:
+                fr.done.wait()
         with self._cond:
-            if not inline:
-                self.wait_seconds += time.perf_counter() - t0
             del self._frames[name]
             if fr.admitted:
                 self._ahead_bytes -= fr.budget
@@ -343,7 +340,7 @@ class ReadAheadLoader:
     def _work(self) -> None:
         on_card = torch.cuda.device(self.device) if self._stream is not None \
             else contextlib.nullcontext()
-        with on_card:
+        with on_card, trace.in_command(self._command):
             while True:
                 with self._cond:
                     while not self._closed and not self._queue and self._unread:
@@ -357,12 +354,12 @@ class ReadAheadLoader:
                     fr.started = True
                 self._read(name, fr)
 
-    def _read(self, name: str, fr: _Frame, inline: bool = False) -> None:
+    @_READ
+    def _read(self, name: str, fr: _Frame) -> None:
         """Read one frame (on a worker, or inline on the consumer); any
         error is handed to the consumer's get."""
         from nightlight_tpu_torch.io.fits import raw_row_slices, read_raw
 
-        t0 = time.perf_counter()
         held = []
         log = io.StringIO()
 
@@ -384,8 +381,9 @@ class ReadAheadLoader:
                                   for sl, dev in zip(slices, self._mesh.devices)]
                     # the copies have landed: the pinned buffer is free
                     # again, and the consumer's streams need no wait on it
-                    for stream in self._streams.values():
-                        stream.synchronize()
+                    with trace.host_read(self.device):
+                        for stream in self._streams.values():
+                            stream.synchronize()
         except BaseException as e:  # noqa: BLE001 - raised by get for this frame
             fr.error = e
         finally:
@@ -393,8 +391,6 @@ class ReadAheadLoader:
                 self._pool.release(buf)
             fr.log = log.getvalue()
             with self._cond:
-                if not inline:
-                    self.read_seconds += time.perf_counter() - t0
                 if fr.admitted and fr.error is None:  # the window counts what was read
                     held_bytes = (sum(r.numel() for r in fr.raw) if isinstance(fr.raw, list)
                                   else fr.raw.numel() if fr.raw is not None

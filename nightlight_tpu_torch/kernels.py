@@ -35,6 +35,8 @@ from pathlib import Path
 
 import torch
 
+from nightlight_tpu_torch import trace
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("stack_clip.cu", "stack_linfit.cu", "stack_single_pass.cu", "gather_patches.cu",
@@ -72,6 +74,9 @@ def reset_launch_counts() -> None:
 def launch_counts() -> dict:
     with _count_lock:
         return dict(_launches)
+
+
+trace.source("kernels.launches", launch_counts)
 
 
 def source_hash() -> str:

@@ -21,6 +21,7 @@ import contextlib
 import numpy as np
 import torch
 
+from nightlight_tpu_torch import trace
 from nightlight_tpu_torch.detect.stars import MAX_CANDIDATES, find_stars_batch
 from nightlight_tpu_torch.image import bin_block_mean
 from nightlight_tpu_torch.ops import pixelmath as pm
@@ -135,8 +136,8 @@ def preprocess_frames(frames: list, dark, flat, flat_max, spec,
                                   int(spec.star_radius), diff_std_t[s:e], max_candidates)
         stars.extend(st)
         hfrs.extend(hf)
-    scalars = torch.cat([torch.stack([n_bad, diff_std_t, mn, me, mx, loc, scale], dim=1),
-                         deband], dim=1).cpu().numpy()
+    scalars = trace.to_host(torch.cat([torch.stack([n_bad, diff_std_t, mn, me, mx, loc, scale],
+                                                   dim=1), deband], dim=1)).numpy()
     return batch, scalars, stars, hfrs
 
 
@@ -171,6 +172,7 @@ def per_frame_path(active: bool = True, reason: str = "per-frame comparison"):
         fused_batch_eligible = eligible
 
 
+@trace.span("preprocess")
 def run_fused_preprocess(images, c, spec) -> list:
     """Run the fused preprocess chain for a batch of loaded Images and emit
     the per-frame operator log lines in the chain's order. Mutates and

@@ -24,6 +24,7 @@ import math
 
 import numpy as np
 
+from nightlight_tpu_torch import trace
 from nightlight_tpu_torch.ops import stack as stk
 from nightlight_tpu_torch.parallel import mesh as pm
 
@@ -63,7 +64,7 @@ def _clips_fn(subs, mesh, mode, weights, ref_frame_loc):
             highs.append(ch)
         if mesh is not None:
             lows, highs = [pm.psum(lows, mesh)], [pm.psum(highs, mesh)]
-        return int(lows[0]), int(highs[0])
+        return int(trace.to_host(lows[0])), int(trace.to_host(highs[0]))
 
     return clips
 
@@ -167,6 +168,7 @@ def _evaluator(frames, mode, weights, ref_frame_loc, subsample, mesh):
     return _clips_fn(subs, mesh, mode, weights, ref_frame_loc), sub_total
 
 
+@trace.span("stack")
 def find_sigmas_and_stack(frames, mode: stk.StackMode, weights=None, ref_frame_loc: float = 0.0,
                           clip_perc_low: float = 0.5, clip_perc_high: float = 0.5,
                           max_iter: int = 20, log=None, mesh=None, axis: str = "pix"):
@@ -188,7 +190,7 @@ def find_sigmas_and_stack(frames, mode: stk.StackMode, weights=None, ref_frame_l
     if mode not in (stk.StackMode.Sigma, stk.StackMode.WinsorSigma, stk.StackMode.LinearFit):
         out, cl, ch = stk.stack(frames, mode, weights=weights, ref_frame_loc=ref_frame_loc,
                                 mesh=mesh, axis=axis)
-        return out, int(cl), int(ch), 0.0, 0.0
+        return out, int(trace.to_host(cl)), int(trace.to_host(ch)), 0.0, 0.0
 
     total = frames.numel()
     target_l, target_h = int(100 * clip_perc_low), int(100 * clip_perc_high)
@@ -205,7 +207,7 @@ def find_sigmas_and_stack(frames, mode: stk.StackMode, weights=None, ref_frame_l
         lo, hi = hist[-1]
         out, cl, ch = stk.stack(frames, mode, weights=weights, sigma_low=lo, sigma_high=hi,
                                 ref_frame_loc=ref_frame_loc, mesh=mesh, axis=axis)
-        clips[-1] = (int(cl), int(ch))
+        clips[-1] = (int(trace.to_host(cl)), int(trace.to_host(ch)))
         return out, hist, clips
 
     def final_deltas(clips):

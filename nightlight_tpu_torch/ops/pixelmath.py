@@ -6,9 +6,11 @@ from __future__ import annotations
 
 import torch
 
+from nightlight_tpu_torch import trace
+
 
 def _f32(v, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.float32).to(like.device)
+    return trace.upload(torch.as_tensor(v, dtype=torch.float32), like.device)
 
 
 def fma32(a, b, c) -> torch.Tensor:

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from nightlight_tpu_torch import trace
 from nightlight_tpu_torch.ops.pixelmath import fma32
 from nightlight_tpu_torch.parallel import mesh as pm
 
@@ -26,7 +27,7 @@ def subtract(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def flat_divide(a: torch.Tensor, flat: torch.Tensor, flat_max: float) -> torch.Tensor:
     """a * flat_max / flat, passing through where the flat is <= 0."""
-    fm = torch.tensor(float(flat_max), dtype=torch.float32, device=a.device)
+    fm = trace.upload(float(flat_max), a.device, torch.float32)
     return torch.where(flat <= 0.0, a, a * fm / flat)
 
 
@@ -110,8 +111,8 @@ def _repair_parts(parts, n: int, device, sigma_low: float, sigma_high: float):
     repaired, counts = [], []
     for (b, m), d in zip(parts, diffs):
         s = pm._to(std, b.device)[..., None, None]
-        slo = torch.tensor(float(sigma_low), dtype=torch.float32, device=b.device)
-        shi = torch.tensor(float(sigma_high), dtype=torch.float32, device=b.device)
+        slo = trace.upload(float(sigma_low), b.device, torch.float32)
+        shi = trace.upload(float(sigma_high), b.device, torch.float32)
         bad = (d < -slo * s) | (d > shi * s)
         repaired.append(torch.where(bad, m, b))
         counts.append(bad.sum(dim=(-2, -1)).to(torch.int64))
@@ -286,7 +287,7 @@ def _debayer_green(img, xo: int, yo: int):
     fb_lr = (2.0 * g1 + _SQRT2 * g2) * w_edge
     # XLA contracts sqrt2*g1 + 2*g2 into one fused multiply-add (2*g1 is
     # exact, so fb_lr's contraction changes nothing)
-    s2 = torch.tensor(_SQRT2, dtype=torch.float32, device=img.device)
+    s2 = trace.upload(_SQRT2, img.device, torch.float32)
     fb_ud = fma32(s2, g1, 2.0 * g2) * w_edge
 
     g1pad = _pad_edge(g1all, 0, 1, 1, 0)
@@ -327,7 +328,7 @@ def _masked_median9(stacks: list, valids: list) -> torch.Tensor:
     (median.MedianFloat32: the mean of the two middles for an even count).
     Invalid entries go to 3.4e38 before the network; the rank is picked by
     a where-chain."""
-    big = torch.tensor(3.4e38, dtype=torch.float32, device=stacks[0].device)
+    big = trace.upload(3.4e38, stacks[0].device, torch.float32)
     v = [torch.where(m, s, big) for s, m in zip(stacks, valids)]
     for i, j in _SORT9_NET:
         v[i], v[j] = _sort2(v[i], v[j])
@@ -381,8 +382,8 @@ def _bayer_correct_parts(parts, device, sigma_low: float, sigma_high: float):
     out, counts = [], []
     for (b, med, chan), d in zip(parts, deltas):
         s = pm._to(std, b.device)
-        slo = torch.tensor(float(sigma_low), dtype=torch.float32, device=b.device)
-        shi = torch.tensor(float(sigma_high), dtype=torch.float32, device=b.device)
+        slo = trace.upload(float(sigma_low), b.device, torch.float32)
+        shi = trace.upload(float(sigma_high), b.device, torch.float32)
         outlier = chan & ((d < -slo * s) | (d > shi * s))
         out.append(torch.where(outlier, med, b))
         counts.append(outlier.sum())

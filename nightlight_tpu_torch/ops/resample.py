@@ -18,6 +18,7 @@ import math
 import numpy as np
 import torch
 
+from nightlight_tpu_torch import trace
 from nightlight_tpu_torch.align import transform as tf
 from nightlight_tpu_torch.parallel import mesh as pm
 
@@ -47,13 +48,13 @@ def _warp(img: torch.Tensor, inv, out_of_bounds: float, dest_h: int, dest_w: int
     h, w = img.shape
     src_h = h if src_h is None else src_h
     rows = dest_h - row0 if rows is None else rows
-    inv = torch.as_tensor(np.asarray(inv, np.float32), device=img.device)
+    inv = trace.upload(np.asarray(inv, np.float32), img.device)
     xr, yr, xl, yl = _source_coords(inv, row0, rows, dest_w, img.device)
     oob = (xl < 0) | (xl + 1 >= w) | (yl < 0) | (yl + 1 >= src_h)
     if h < src_h:
         # a block: the rows its in-bounds pixels read must lie within it
-        a, b = torch.stack([torch.where(oob, src_h, yl).min(),
-                            torch.where(oob, -1, yl + 1).max()]).tolist()
+        a, b = trace.to_host(torch.stack([torch.where(oob, src_h, yl).min(),
+                                          torch.where(oob, -1, yl + 1).max()])).tolist()
         if a <= b and (a < src_row0 or b >= src_row0 + h):
             raise ValueError(f"_warp: source rows {a}..{b + 1} outside the block "
                              f"{src_row0}..{src_row0 + h}")
@@ -62,7 +63,7 @@ def _warp(img: torch.Tensor, inv, out_of_bounds: float, dest_h: int, dest_w: int
     v00, v01 = img[yc, xc], img[yc, xc + 1]
     v10, v11 = img[yc + 1, xc], img[yc + 1, xc + 1]
     v = (v00 * (1 - xr) + v01 * xr) * (1 - yr) + (v10 * (1 - xr) + v11 * xr) * yr
-    return torch.where(oob, torch.tensor(float(out_of_bounds), device=img.device), v)
+    return torch.where(oob, trace.upload(float(out_of_bounds), img.device), v)
 
 
 def _warp_shift(img: torch.Tensor, inv, out_of_bounds: float, kmin: int, mmin: int,
@@ -81,7 +82,7 @@ def _warp_shift(img: torch.Tensor, inv, out_of_bounds: float, kmin: int, mmin: i
     src_h = h if src_h is None else src_h
     rows = dest_h - row0 if rows is None else rows
     dev = img.device
-    inv = torch.as_tensor(np.asarray(inv, np.float32), device=dev)
+    inv = trace.upload(np.asarray(inv, np.float32), dev)
     xr, yr, xl, yl = _source_coords(inv, row0, rows, dest_w, dev)
     oob = (xl < 0) | (xl + 1 >= w) | (yl < 0) | (yl + 1 >= src_h)
     k_idx = xl - torch.arange(dest_w, device=dev)[None, :] - kmin
@@ -119,10 +120,11 @@ def _warp_shift(img: torch.Tensor, inv, out_of_bounds: float, kmin: int, mmin: i
             bacc = bacc + bx * padded_bad[i:i + rows, c0:c0 + dest_w]
         out = out + wy * acc
         bad = bad + by * bacc
-    out = torch.where(bad > 0, torch.tensor(float("nan"), device=dev), out)
-    return torch.where(oob, torch.tensor(float(out_of_bounds), device=dev), out)
+    out = torch.where(bad > 0, trace.upload(float("nan"), dev), out)
+    return torch.where(oob, trace.upload(float(out_of_bounds), dev), out)
 
 
+@trace.span("warp")
 def warp_shift_batch(frames: torch.Tensor, invs, oobs, kmins, mmins, flags,
                      n_kshift: int, n_mshift: int) -> torch.Tensor:
     """Shift-blend warp of a (N, H, W) batch IN PLACE, frame by frame, so
@@ -187,6 +189,7 @@ def _shift_plan(inv: np.ndarray, src_shape, dest_naxisn):
     return kmin, mmin, n_k, n_m
 
 
+@trace.span("warp")
 def project(img, dest_naxisn, trans: np.ndarray, out_of_bounds: float):
     """Project a (H, W) image into dest dimensions under `trans` (source ->
     dest; sampling uses its inverse) (project.go:26-76). A RowSharded image

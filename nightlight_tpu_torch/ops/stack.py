@@ -14,6 +14,7 @@ from enum import IntEnum
 import numpy as np
 import torch
 
+from nightlight_tpu_torch import trace
 from nightlight_tpu_torch.ops import stack_cuda
 
 
@@ -103,6 +104,7 @@ def stack_sharded(frames, mesh, mode: StackMode, weights=None, sigma_low: float 
             pm.psum(highs, mesh))
 
 
+@trace.span("stack")
 def stack(frames: torch.Tensor, mode: StackMode, weights=None, sigma_low: float = 2.75,
           sigma_high: float = 2.75, ref_frame_loc: float = 0.0, mesh=None,
           axis: str = "pix"):

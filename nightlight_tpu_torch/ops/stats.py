@@ -32,6 +32,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from nightlight_tpu_torch import trace
 from nightlight_tpu_torch.ops import jaxrand
 from nightlight_tpu_torch.parallel import mesh as pm
 
@@ -127,7 +128,7 @@ def _sample(flat, idx: np.ndarray) -> torch.Tensor:
     image, its (1, S) sample gathered from the shards in draw order."""
     if isinstance(flat, pm.RowSharded):
         return pm.take_flat(flat, idx)[None]
-    return flat[:, torch.tensor(idx, dtype=torch.int64, device=flat.device)]
+    return flat[:, trace.upload(idx, flat.device, torch.int64)]
 
 
 def _rows_pixels(flat) -> tuple[int, int]:
@@ -168,7 +169,7 @@ def sigma_clipped_median_qn(flat: torch.Tensor, sigma_low: float = 2.0,
     sr = _sample(flat, idx)
     ss = torch.sort(sr, dim=-1).values
     eps = torch.as_tensor(epsilon, dtype=torch.float32, device=dev).expand(b)
-    sig = torch.tensor(float(sigma_low), dtype=torch.float32, device=dev)
+    sig = trace.upload(float(sigma_low), dev, torch.float32)
 
     loc = median_sorted(ss)
     scale = first_quartile_sorted(torch.sort(_qn_diffs_roll(sr, None, (shift0,)),
@@ -194,7 +195,7 @@ def sigma_clipped_median_qn(flat: torch.Tensor, sigma_low: float = 2.0,
         loc = torch.where(step, new_loc, loc)
         scale = torch.where(step, new_scale, scale)
         active = step
-        if not bool(active.any()):
+        if not bool(trace.to_host(active.any())):
             break
     final_scale = first_quartile_sorted(torch.sort(
         _qn_diffs_roll(sr, None, (shift_final,)), dim=-1).values) * QN_SCALE
@@ -303,7 +304,7 @@ def ikss(flat: torch.Tensor, epsilon: float = 1e-6):
         scale = torch.where(done_small, 0.0, 0.991 * s)
         new_i = torch.maximum(i, _ss(xs, m - 4.0 * s, False))
         new_j = torch.minimum(j, _ss(xs, m + 4.0 * s, True))
-        if bool(done_small | done_conv | ((new_j - new_i) < 1)):
+        if bool(trace.to_host(done_small | done_conv | ((new_j - new_i) < 1))):
             return m, scale
         i, j, s0 = new_i, new_j, s
 
@@ -375,12 +376,12 @@ def _stddev_about(flat, mean: float) -> torch.Tensor:
     n = flat.numel()
     if isinstance(flat, pm.RowSharded):
         def sq(b):
-            d = b - torch.tensor(mean, dtype=torch.float32, device=b.device)
+            d = b - trace.upload(mean, b.device, torch.float32)
             return d * d
 
         var = pm.sum64(flat, sq) / n
     else:
-        d = flat - torch.tensor(mean, dtype=torch.float32, device=flat.device)
+        d = flat - trace.upload(mean, flat.device, torch.float32)
         var = (d * d).to(torch.float64).sum() / n
     return torch.sqrt(var.to(torch.float32))
 
@@ -467,7 +468,8 @@ class Stats:
     def _ensure_mmm(self) -> None:
         if not self._have_mmm:
             # one read-back of the three: each float() would wait for the card
-            self._min, self._mean, self._max = torch.stack(min_mean_max(self._flat())).tolist()
+            self._min, self._mean, self._max = trace.to_host(
+                torch.stack(min_mean_max(self._flat()))).tolist()
             self._have_mmm = True
 
     @property
@@ -489,7 +491,7 @@ class Stats:
     def stddev(self) -> float:
         if not self._have_stddev:
             self._ensure_mmm()
-            self._stddev = float(_stddev_about(self._flat(), self._mean))
+            self._stddev = float(trace.to_host(_stddev_about(self._flat(), self._mean)))
             self._have_stddev = True
         return self._stddev
 
@@ -515,7 +517,7 @@ class Stats:
                 d = d.reshape(-1, self._width)
             elif d.dim() == 3:
                 d = d[0]
-            self._noise = float(estimate_noise(d))
+            self._noise = float(trace.to_host(estimate_noise(d)))
             self._have_noise = True
         return self._noise
 
@@ -529,6 +531,7 @@ class Stats:
         """(min, max) as float32 scalars (see device_location_scale)."""
         return np.float32(self.min), np.float32(self.max)
 
+    @trace.span("perframe")
     def _update_location_scale(self) -> None:
         """Dispatch on the estimator mode (stats.go:225-244)."""
         mode = self.mode
@@ -539,23 +542,23 @@ class Stats:
         elif mode == LSEstimatorMode.MedianMAD:
             loc = fast_approx_median(flat)
             scale = fast_approx_mad(flat, loc)
-            self._location, self._scale = float(loc), float(scale)
+            self._location, self._scale = float(trace.to_host(loc)), float(trace.to_host(scale))
         elif mode == LSEstimatorMode.IKSS:
             # IKSS's rounds shrink a window over the sorted pixels: a
             # row-sharded image is taken gathered
             loc, scale = ikss(pm.gather(flat, "ikss"))
-            self._location, self._scale = float(loc), float(scale)
+            self._location, self._scale = float(trace.to_host(loc)), float(trace.to_host(scale))
         elif mode in (LSEstimatorMode.SCMedianQn, LSEstimatorMode.Histogram):
             self._ensure_mmm()
-            mn = torch.tensor(self._min, dtype=torch.float32, device=dev)
-            mx = torch.tensor(self._max, dtype=torch.float32, device=dev)
+            mn = trace.upload(self._min, dev, torch.float32)
+            mx = trace.upload(self._max, dev, torch.float32)
             if mode == LSEstimatorMode.SCMedianQn:
                 rows = flat if isinstance(flat, pm.RowSharded) else flat[None]
                 loc, scale = location_scale(rows, mn[None], mx[None])
                 loc, scale = loc[0], scale[0]
             else:
                 loc, scale = histogram_scale_loc(flat, mn, mx, 4096)
-            self._location, self._scale = float(loc), float(scale)
+            self._location, self._scale = float(trace.to_host(loc)), float(trace.to_host(scale))
         else:
             raise ValueError(f"unknown LS estimator mode {mode}")
         self._have_locscale = True

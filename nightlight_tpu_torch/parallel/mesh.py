@@ -56,6 +56,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from nightlight_tpu_torch import trace
 from nightlight_tpu_torch.ops import stack as stk
 from nightlight_tpu_torch.ops.pixelmath import _f32, fma32
 
@@ -83,6 +84,7 @@ class Mesh:
 # site that asked for one: chip_smoke.py and the tests read which per-frame
 # work took a frame whole
 GATHERS: collections.Counter = collections.Counter()
+trace.source("mesh.gathers", lambda: GATHERS)
 
 
 class RowSharded:

@@ -11,6 +11,7 @@ from enum import IntEnum
 
 import numpy as np
 
+from nightlight_tpu_torch import trace
 from nightlight_tpu_torch.align import transform as tf
 from nightlight_tpu_torch.image import Image
 from nightlight_tpu_torch.ops import pixelmath as pxm
@@ -45,6 +46,7 @@ class OpMatchHistogram(UnaryOperator):
     PARAMS = {"mode": ("mode", int(HistoNormMode.LocScale))}
     SHARDED = True
 
+    @trace.span("perframe")
     def apply(self, f: Image, c: Context):
         if f is None:
             return None

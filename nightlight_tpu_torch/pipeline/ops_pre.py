@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from nightlight_tpu_torch import trace
 from nightlight_tpu_torch.image import Image, bin_nxn
 from nightlight_tpu_torch.ops import pixelmath as pxm
 from nightlight_tpu_torch.ops import prestack as ps
@@ -58,6 +59,7 @@ class OpCalibrate(UnaryOperator):
                 raise ValueError(f"dark dimensions {c.dark_frame.naxisn} differ from flat "
                                  f"dimensions {c.flat_frame.naxisn}")
 
+    @trace.span("perframe")
     def apply(self, f: Image, c: Context) -> Image:
         self._init_masters(c)
         for master, what in ((c.dark_frame, "dark"), (c.flat_frame, "flat")):
@@ -116,6 +118,7 @@ class OpBadPixel(UnaryOperator):
     def is_noop(self) -> bool:
         return self.sigma_low == 0 or self.sigma_high == 0
 
+    @trace.span("perframe")
     def apply(self, f: Image, c: Context) -> Image:
         if self.is_noop():
             return f
@@ -131,7 +134,7 @@ class OpBadPixel(UnaryOperator):
             corrected, n_removed = correct(f.data, debayer.channel, debayer.color_filter_array,
                                            self.sigma_low, self.sigma_high)
             f.set_data(corrected)
-            n_removed = int(n_removed)
+            n_removed = int(trace.to_host(n_removed))
             # float32 n * (100 / pixels), as the JAX package formats it
             c.logf("%d: Removed %d bad bayer pixels (%.2f%%) with sigma low=%.2f high=%.2f\n",
                    f.id, n_removed, np.float32(n_removed) * np.float32(100.0 / f.pixels),
@@ -142,9 +145,9 @@ class OpBadPixel(UnaryOperator):
         repair = (ps.bad_pixel_repair_sharded if isinstance(f.data, pm.RowSharded)
                   else ps.bad_pixel_repair)
         repaired, n_bad, diff_std = repair(f.data, self.sigma_low, self.sigma_high)
-        f.median_diff_stats = Stats.from_stddev(float(diff_std))
+        f.median_diff_stats = Stats.from_stddev(float(trace.to_host(diff_std)))
         f.set_data(repaired)
-        n_bad = int(n_bad)
+        n_bad = int(trace.to_host(n_bad))
         c.logf("%d: Removed %d bad pixels (%.2f%%) with sigma low=%.2f high=%.2f\n",
                f.id, n_bad, n_bad * (100.0 / f.pixels), self.sigma_low, self.sigma_high)
         return f

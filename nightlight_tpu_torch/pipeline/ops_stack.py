@@ -12,6 +12,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from nightlight_tpu_torch import trace
 from nightlight_tpu_torch.image import Image
 from nightlight_tpu_torch.ops import stack as stk
 from nightlight_tpu_torch.pipeline.context import Context
@@ -174,7 +175,7 @@ class OpStack(Operator):
         del frames
         if mode >= stk.StackMode.Sigma:
             total = len(fs) * fs[0].pixels
-            clip_lo, clip_hi = int(clip_lo), int(clip_hi)
+            clip_lo, clip_hi = int(trace.to_host(clip_lo)), int(trace.to_host(clip_hi))
             c.logf("Clipped low %d (%.2f%%) high %d (%.2f%%)\n",
                    clip_lo, clip_lo * 100.0 / total, clip_hi, clip_hi * 100.0 / total)
         result = Image.from_naxisn(naxisn0, data, ls_mode=ls_mode0)

@@ -48,11 +48,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from nightlight_tpu_torch import fixtures
+from nightlight_tpu_torch import fixtures, trace
 from nightlight_tpu_torch.image import Image
 from nightlight_tpu_torch.io import fits
 from nightlight_tpu_torch.ops.stats import min_mean_max
-from nightlight_tpu_torch.scripts.phase_split import evict_page_cache
+from nightlight_tpu_torch.scripts.phase_split import evict_page_cache, loader_seconds
 
 BUILD = Path(__file__).resolve().parents[2] / "build"
 
@@ -177,28 +177,31 @@ def loader_ms(names, device):
     """The frames through io/ingest.py's loader, consumed in order: the
     consumer's milliseconds a frame (wait, decode, stats; the median, and
     its mean wait), the workers' read milliseconds a frame (overlapped)
-    and their seconds pinning buffers; None without it."""
+    and their seconds pinning buffers, from the loader's spans (recorded
+    here); None without it."""
     try:
         from nightlight_tpu_torch.io import ingest
     except ImportError:
         return None
     loader = ingest.ReadAheadLoader.try_create(list(enumerate(names)), io.StringIO(), device)
     times = []
-    try:
-        for name in names:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            img = loader.get(name)
-            img.stats._ensure_mmm()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        workers = loader.read_seconds / len(names) * 1e3
-        waits = loader.wait_seconds / len(names) * 1e3
-        pinning = loader.pin_seconds
-    finally:
-        loader.close()
+    with trace.recording():
+        first = len(trace.records())
+        try:
+            for name in names:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                img = loader.get(name)
+                img.stats._ensure_mmm()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        finally:
+            loader.close()
+        spent = loader_seconds(trace.records()[first:])
     return {"consumer_ms": statistics.median(times) * 1e3, "consumer_total_s": sum(times),
-            "workers_read_ms": workers, "consumer_wait_ms": waits, "pin_total_s": pinning}
+            "workers_read_ms": spent["workers_read_s"] / len(names) * 1e3,
+            "consumer_wait_ms": spent["wait_s"] / len(names) * 1e3,
+            "pin_total_s": spent["pin_s"]}
 
 
 def main(argv=None) -> list:

@@ -37,7 +37,8 @@ reads overlap the rest and are printed apart, summed over their threads
 ("workers_read_s"), with the frames the consumer had to read itself
 ("inline_reads"), the part of "load" the consumer spent waiting for a
 worker ("wait_s") and the workers' seconds pinning host buffers
-("pin_s").
+("pin_s"), read from the loader's spans (load.read, load.wait, load.pin)
+and its inline-read counter.
 
 The fixtures are written just before the first run, so reads hit the page
 cache. With --cold every input of a configuration is dropped from the page
@@ -247,30 +248,41 @@ def phases_wrapped(clock: PhaseClock):
             setattr(holder, attr, original)
 
 
+def loader_seconds(spans) -> dict:
+    """The read-ahead loader's seconds in `spans` (trace records): its
+    workers' reads ("workers_read_s", load.read on the read-ahead-*
+    threads), the consumer's waits for them ("wait_s", load.wait) and the
+    pinning of host buffers ("pin_s", load.pin)."""
+    out = {"workers_read_s": 0.0, "wait_s": 0.0, "pin_s": 0.0}
+    for s in spans:
+        key = {"load.wait": "wait_s", "load.pin": "pin_s"}.get(s.name)
+        if s.name == "load.read" and s.thread_name.startswith("read-ahead"):
+            key = "workers_read_s"
+        if key:
+            out[key] += (s.end_ns - s.start_ns) * 1e-9
+    return out
+
+
 @contextlib.contextmanager
 def loader_reads(totals: dict):
-    """Add each read-ahead loader's workers' read seconds, inline reads,
-    the consumer's waits and the pinning seconds to `totals` when it closes
-    (nothing on a tree without the loader)."""
+    """Add the read-ahead loaders' workers' read seconds, inline reads,
+    the consumer's waits and the pinning seconds inside the block to
+    `totals`, from the program's spans and counters (nothing on a tree
+    without them)."""
     try:
-        from nightlight_tpu_torch.io.ingest import ReadAheadLoader
+        from nightlight_tpu_torch import trace
     except ModuleNotFoundError:
         yield
         return
-    close = ReadAheadLoader.close
-
-    def counted(self):
-        close(self)
-        totals["workers_read_s"] += self.read_seconds
-        totals["inline_reads"] += self.inline_reads
-        totals["wait_s"] += self.wait_seconds
-        totals["pin_s"] += self.pin_seconds
-
-    ReadAheadLoader.close = counted
-    try:
-        yield
-    finally:
-        ReadAheadLoader.close = close
+    with trace.recording():
+        first = len(trace.records())
+        inline0 = sum(trace.counter("load.inline_reads").values())
+        try:
+            yield
+        finally:
+            for k, v in loader_seconds(trace.records()[first:]).items():
+                totals[k] += v
+            totals["inline_reads"] += sum(trace.counter("load.inline_reads").values()) - inline0
 
 
 def evict_page_cache(paths) -> None:

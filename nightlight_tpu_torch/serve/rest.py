@@ -26,7 +26,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
 
-from nightlight_tpu_torch import kernels
+from nightlight_tpu_torch import kernels, trace
 from nightlight_tpu_torch.ops.stats import LSEstimatorMode
 from nightlight_tpu_torch.pipeline import materialize_all, op_from_dict
 from nightlight_tpu_torch.pipeline.context import default_device, new_context
@@ -152,6 +152,12 @@ class Handler(BaseHTTPRequestHandler):
         if self.path.split("?", 1)[0] != "/api/v1/job":
             self.send_error(404)
             return
+        # one request: a command of the tracer (trace.py), its job's
+        # command span nested inside
+        with trace.command("request"):
+            self._post_job()
+
+    def _post_job(self) -> None:
         length = int(self.headers.get("Content-Length", "0"))
         raw = self.rfile.read(length)
         try:
@@ -187,9 +193,10 @@ class Handler(BaseHTTPRequestHandler):
             log.write("Queued: another job is running; waiting for the device...\n")
             _job_lock.acquire()
         try:
-            promises = op.make_promises([], c)
-            _, err = materialize_all(promises, forget=True)
-            c.finalize()
+            with trace.command():
+                promises = op.make_promises([], c)
+                _, err = materialize_all(promises, forget=True)
+                c.finalize()
             if err is not None:
                 log.write(f"Error materializing promises: {err}\n")
         except Exception as e:  # noqa: BLE001 - reported on the stream

@@ -37,34 +37,3 @@ class MultiWriter(io.TextIOBase):
             if hasattr(sink, "flush"):
                 sink.flush()
 
-
-class TimestampWriter(io.TextIOBase):
-    """Prefix each log LINE with elapsed wall seconds ("[+12.34s] ").
-
-    Opt-in phase attribution (NIGHTLIGHT_LOG_TIMES=1 in the CLI): ops log at
-    host-side barriers, so the deltas between stamped lines show where the
-    wall clock went — the per-phase split BASELINE.md records for the bench
-    configs. Off by default; stamped logs would break the parity goldens."""
-
-    def __init__(self, sink, clock=None):
-        import time
-        self._sink = sink
-        self._clock = clock or time.perf_counter
-        self._t0 = self._clock()
-        self._at_line_start = True
-
-    def write(self, s: str) -> int:
-        out = []
-        for ch in s:
-            if self._at_line_start and ch != "\n":
-                out.append(f"[+{self._clock() - self._t0:8.2f}s] ")
-                self._at_line_start = False
-            out.append(ch)
-            if ch == "\n":
-                self._at_line_start = True
-        self._sink.write("".join(out))
-        return len(s)
-
-    def flush(self) -> None:
-        if hasattr(self._sink, "flush"):
-            self._sink.flush()
