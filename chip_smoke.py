@@ -19,7 +19,11 @@
    (n = 3, 8, 16, 30, 32, 33, 64, 65, 128, 256, 300; at odd n integer
    frames with signed zeros and all-NaN columns) on 2^20 pixels, the
    on-chip ones also timed against scratch in turns; K4 with K=2048, r=32,
-   centres past the edges, the whole call and its C entry alone; K5 column
+   centres past the edges, the whole call and its C entry alone; K7 (the
+   shift-blend warp) at the shift buckets 2, 4 and 8 on a sky with NaN and
+   +-inf pixels, the edges too, two fills, a block call and
+   warp_shift_batch on 8 frames, its ms a warped frame required under 0.5
+   (warp_cases); K5 column
    and tiled and K6 tiled at 128/256/512/1024 threads per block on (40,
    2^21) samples, the tiled layout in both designs (bulk_ring and the port's
    first, smem_sort; timed in turns, bulk_ring required the faster) and held bit
@@ -155,6 +159,8 @@ KERNELS = {
     "stack_single_pass": (CSRC + "stack_single_pass.cu",
                           "nightlight_tpu/ops/stack_pallas.py:530"),
     "gather_patches": (CSRC + "gather_patches.cu", "nightlight_tpu/ops/gather_pallas.py:41"),
+    # no TPU kernel: the JAX package's shift-blend warp is XLA
+    "warp_shift": (CSRC + "warp_shift.cu", "none (XLA: nightlight_tpu/ops/resample.py:57)"),
 }
 SORT_SRC = CSRC + "sort_sum.cu"
 SORT_REPLACES = {"column": "scripts/microbench_layout.py:56",   # run_flat
@@ -571,6 +577,159 @@ def kernel_cases(size: int, stack_cuda, gather_cuda, kernels):
     del yy, xx, yy_c, xx_c, pk, pp, ok_k, ok_p, out_k, ok_buf
 
     return rows, buckets
+
+
+def sky_with_holes(gen, size: int, device):
+    """A size^2 float32 sky on the card with 0.2% NaN and 0.1% each of +inf
+    and -inf pixels, and one of each on every edge of the frame."""
+    import torch
+
+    img = torch.randn((size, size), generator=gen, device=device) * 20.0 + 900.0
+    u = torch.rand((size, size), generator=gen, device=device)
+    full = lambda v: torch.full((), v, device=device)  # noqa: E731
+    img = torch.where(u < 0.002, full(float("nan")), img)
+    img = torch.where((u >= 0.002) & (u < 0.003), full(float("inf")), img)
+    img = torch.where((u >= 0.003) & (u < 0.004), full(float("-inf")), img)
+    last = size - 1
+    for k, v in enumerate((float("nan"), float("inf"), float("-inf"))):
+        at = 100 + 7 * k
+        img[0, at] = img[last, at + 1] = img[at + 2, 0] = img[at + 3, last] = v
+    return img.contiguous()
+
+
+# inverse transforms of the K7 cases at 4096^2 by the shift bucket (n_k,
+# n_m) each plans: a dither; a dither with 0.02 degrees of rotation; 0.07
+# degrees (what alignment hands the warp for these stacks lies in 2 or 4)
+WARP_INVS = {2: [1.0, 0.0, 3.4, 0.0, 1.0, -2.7],
+             4: [1.0001, 0.0003, -5.25, -0.0003, 0.9999, 1.5],
+             8: [1.0, 0.0012, 2.2, -0.0012, 1.0, -1.3]}
+
+
+def warp_inv(inv, size: int) -> list:
+    """`inv` (for 4096^2) with its linear part's departure from the identity
+    scaled to a size^2 frame, so that it plans the same shift bucket."""
+    a, b, c, d, e, f = inv
+    s = 4096.0 / size
+    return [1.0 + (a - 1.0) * s, b * s, c, d * s, 1.0 + (e - 1.0) * s, f]
+
+
+def warp_cases(size: int, kernels) -> list:
+    """K7 (the shift-blend warp) against its plain version on the card, bit
+    for bit as int32 words: the buckets 2, 4 and 8 on a size^2 sky with
+    NaN and +-inf pixels (on the edges too), the out-of-bounds fill NaN and
+    a non-zero one, a _project_sharded-style block call (rows [row0, row0 +
+    rows) of a block of size/4 + 64 source rows); the plain version on the
+    CPU once; then warp_shift_batch on 8 frames, one of them the reference
+    (flag False), against the plain version frame by frame. Times: the
+    wrapper (10 calls back to back, and one), the C entry alone, the plain
+    version, the batch call a warped frame; the bound: the frame read once
+    and written once at 3.35 TB/s. Returns the kernel table's rows."""
+    import numpy as np
+    import torch
+
+    from nightlight_tpu_torch.ops import resample, warp_cuda
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    img = sky_with_holes(gen, size, dev)
+    words = lambda t: t.contiguous().view(torch.int32)  # noqa: E731
+    src, replaces = KERNELS["warp_shift"]
+    work = bound(8.0 * size * size, 0.0)
+    rows = []
+    for bucket, inv in WARP_INVS.items():
+        inv = warp_inv(inv, size)
+        kmin, mmin, n_k, n_m = resample._shift_plan(np.asarray(inv), (size, size), [size, size])
+        check((n_k, n_m) == (bucket, bucket), f"warp_shift: plan {(n_k, n_m)} for {bucket}")
+        for fill in (float("nan"), -7.25):
+            args = (img, inv, fill, kmin, mmin, size, size, n_k, n_m)
+            got = warp_cuda.warp_shift_cuda(*args)
+            want = resample._warp_shift(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(words(got), words(want)),
+                  f"warp_shift bucket {bucket} fill {fill}: kernel differs from plain")
+        nan_px = int(torch.isnan(got).sum())
+        if bucket == 4:
+            cpu = resample._warp_shift(img.cpu(), *args[1:])
+            check(torch.equal(words(got.cpu()), words(cpu)),
+                  f"warp_shift bucket {bucket}: kernel differs from the plain version on the CPU")
+        times = kernel_ms(lambda: warp_cuda.warp_shift_cuda(*args))
+        out = torch.empty_like(got)
+        lib = kernels.library()
+        target = kernels.launch_on(dev)
+        inv32 = [float(v) for v in np.asarray(inv, np.float32)]
+
+        def alone():
+            kernels.check(lib.nl_warp_shift(img.data_ptr(), size, size, 0, size, *inv32, fill,
+                                            kmin, mmin, n_k, n_m, 0, size, size,
+                                            out.data_ptr(), *target), "warp_shift")
+
+        only = kernel_ms(alone)
+        check(torch.equal(words(out), words(got)), "warp_shift: C entry differs")
+        plain_ms = cuda_ms(lambda: resample._warp_shift(*args), reps=3)
+        say(f"warp_shift bucket ({n_k}, {n_m}) on {size}x{size}: bit for bit the plain version "
+            f"(fills NaN and -7.25{', and on the CPU' if bucket == 4 else ''}), {nan_px} NaN "
+            f"px; call {times['ms']:.4f} ms ({times['single_call_ms']:.4f} single call), kernel "
+            f"alone {only['ms']:.4f} ms ({only['single_call_ms']:.4f}), plain {plain_ms:.3f} ms, "
+            f"bound {work['bound_ms']:.4f} ms")
+        rows.append({"name": f"warp_shift bucket {bucket}", "kernel": "warp_shift",
+                     "route": "cuda", "source": src, "replaces": replaces, "max_abs_err": 0.0,
+                     **times, "kernel_only_ms": only["ms"],
+                     "kernel_only_single_call_ms": only["single_call_ms"],
+                     "plain_ms": plain_ms, "shape": [size, size], "buckets": [n_k, n_m],
+                     **work, "share_of_bound": work["bound_ms"] / only["ms"]})
+        del got, want, out
+
+    # a block call as _project_sharded makes it: destination rows of the
+    # second of four shards, from a block of its rows and a halo of 32 each side
+    inv = warp_inv(WARP_INVS[4], size)
+    kmin, mmin, n_k, n_m = resample._shift_plan(np.asarray(inv), (size, size), [size, size])
+    rows_b = size // 4
+    row0, src_row0 = rows_b, rows_b - 32
+    block = img[src_row0:src_row0 + rows_b + 64].contiguous()
+    kw = dict(row0=row0, rows=rows_b, src_row0=src_row0, src_h=size)
+    args = (block, inv, 12.5, kmin, mmin, size, size, n_k, n_m)
+    got = warp_cuda.warp_shift_cuda(*args, **kw)
+    want = resample._warp_shift(*args, **kw)
+    check(torch.equal(words(got), words(want)), "warp_shift block call: kernel differs from plain")
+    say(f"warp_shift block call: rows {row0}..{row0 + rows_b} from a block of "
+        f"{tuple(block.shape)} at row {src_row0}: bit for bit the plain version")
+
+    # the whole batch call: 8 frames, the first the reference
+    n = 8
+    frames = torch.stack([sky_with_holes(gen, size, dev) for _ in range(n)])
+    invs = [[1.0, 0.0, 0.0, 0.0, 1.0, 0.0]] + [
+        warp_inv([1.0, 0.0002 * (i % 3 - 1), 1.7 * i - 6.1, -0.0002 * (i % 3 - 1), 1.0,
+                  4.3 - 1.1 * i], size) for i in range(1, n)]
+    kmins, mmins, n_k, n_m = resample.plan_batch_shift_warp([(size, size)] * n, [size, size],
+                                                            invs)
+    flags = [False] + [True] * (n - 1)
+    oobs = [float("nan")] * n
+    want = [frames[0].clone()] + [
+        resample._warp_shift(frames[i], invs[i], oobs[i], int(kmins[i]), int(mmins[i]), size,
+                             size, n_k, n_m) for i in range(1, n)]
+    kernels.reset_launch_counts()
+    got = resample.warp_shift_batch(frames.clone(), invs, oobs, kmins, mmins, flags, n_k, n_m)
+    launches = kernels.launch_counts()["warp_shift"]
+    check(launches == n - 1, f"warp_shift_batch: {launches} launches for {n - 1} warped frames")
+    for i in range(n):
+        check(torch.equal(words(got[i]), words(want[i])),
+              f"warp_shift_batch frame {i}: differs from the plain version")
+    del want, got
+    batch_ms = cuda_ms(lambda: resample.warp_shift_batch(frames, invs, oobs, kmins, mmins, flags,
+                                                         n_k, n_m))
+    per_frame = batch_ms / (n - 1)
+    say(f"warp_shift_batch: {n} frames of {size}x{size}, bucket ({n_k}, {n_m}), {launches} "
+        f"launches, bit for bit the plain version frame by frame; {batch_ms:.3f} ms a call, "
+        f"{per_frame:.4f} ms a warped frame")
+    check(per_frame < 0.5, f"warp_shift_batch: {per_frame:.3f} ms a warped frame")
+    rows.append({"name": "warp_shift_batch", "kernel": "warp_shift", "route": "cuda",
+                 "source": src, "replaces": replaces, "max_abs_err": 0.0, "ms": per_frame,
+                 "batch_call_ms": batch_ms, "frames": n, "buckets": [n_k, n_m], **work,
+                 "share_of_bound": work["bound_ms"] / per_frame})
+    del frames, img, block
+    torch.cuda.empty_cache()
+    return rows
 
 
 def edge_rows(gen, p: int, device):
@@ -1856,6 +2015,7 @@ def main() -> int:
         check(all(r[2] == 0 and r[3] == 0 for r in ring), "ptxas: a ring kernel spills")
 
     rows, buckets = kernel_cases(opts.size, stack_cuda, gather_cuda, kernels)
+    rows += warp_cases(opts.size, kernels)
     rows += sort_sum_cases(sortnet_cuda, microbench_layout)
     torch.cuda.empty_cache()
 
@@ -1900,6 +2060,7 @@ def main() -> int:
                   f"stack {name}: clip line {'missing' if clipped else 'unexpected'}")
             check(counts[kernel] > 0, f"stack {name}: {kernel} never launched")
             check(counts["gather_patches"] > 0, f"stack {name}: gather_patches never launched")
+            check(counts["warp_shift"] > 0, f"stack {name}: warp_shift never launched")
             check_output(nlfits, out, size)
             os.remove(out)
 

@@ -8,7 +8,9 @@ near-identity transforms alignment produces, the shift-blend warp, which
 forms bilinear interpolation as a blend of a few integer-shifted copies of
 the image with per-pixel weights; both apply the same px/py, floor and
 fraction arithmetic and the same rule that a destination pixel is NaN iff
-one of its four bilinear neighbours is not finite.
+one of its four bilinear neighbours is not finite. The shift-blend warp
+runs through ops/warp_cuda.py warp_shift: kernel K7 on the card, the plain
+version _warp_shift on the CPU.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from nightlight_tpu_torch import trace
 from nightlight_tpu_torch.align import transform as tf
+from nightlight_tpu_torch.ops import warp_cuda
 from nightlight_tpu_torch.parallel import mesh as pm
 
 _SHIFT_PAD = 256
@@ -70,7 +73,8 @@ def _warp_shift(img: torch.Tensor, inv, out_of_bounds: float, kmin: int, mmin: i
                 dest_h: int, dest_w: int, n_kshift: int, n_mshift: int,
                 row0: int = 0, rows: int | None = None, src_row0: int = 0,
                 src_h: int | None = None) -> torch.Tensor:
-    """Gather-free bilinear warp for near-identity transforms: a blend of
+    """Gather-free bilinear warp for near-identity transforms (the plain
+    version of kernel K7, ops/warp_cuda.py): a blend of
     n_mshift x n_kshift integer-shifted slices of the image, zero-padded
     by _SHIFT_PAD columns and beyond its first and last rows (the plan
     keeps every slice inside that padding). Of destination rows [row0, row0
@@ -127,16 +131,18 @@ def _warp_shift(img: torch.Tensor, inv, out_of_bounds: float, kmin: int, mmin: i
 @trace.span("warp")
 def warp_shift_batch(frames: torch.Tensor, invs, oobs, kmins, mmins, flags,
                      n_kshift: int, n_mshift: int) -> torch.Tensor:
-    """Shift-blend warp of a (N, H, W) batch IN PLACE, frame by frame, so
-    the temporaries stay one frame in size; a frame whose flag is False (the
-    alignment reference) keeps its pixels. The shift counts are the batch
-    maxima: a frame needing fewer shifts gets zero weight on the extra
-    slices. Returns `frames`."""
+    """Shift-blend warp of a (N, H, W) batch IN PLACE, frame by frame: each
+    warped frame goes to one frame-sized scratch and is copied back; a frame
+    whose flag is False (the alignment reference) keeps its pixels. The
+    shift counts are the batch maxima: a frame needing fewer shifts gets
+    zero weight on the extra slices. Returns `frames`."""
     _, dest_h, dest_w = frames.shape
+    scratch = torch.empty((dest_h, dest_w), dtype=frames.dtype, device=frames.device)
     for i in range(frames.shape[0]):
         if flags[i]:
-            frames[i] = _warp_shift(frames[i], invs[i], float(oobs[i]), int(kmins[i]),
-                                    int(mmins[i]), dest_h, dest_w, n_kshift, n_mshift)
+            frames[i] = warp_cuda.warp_shift(frames[i], invs[i], float(oobs[i]), int(kmins[i]),
+                                             int(mmins[i]), dest_h, dest_w, n_kshift, n_mshift,
+                                             out=scratch)
     return frames
 
 
@@ -201,7 +207,8 @@ def project(img, dest_naxisn, trans: np.ndarray, out_of_bounds: float):
         return _project_sharded(img, inv, plan, out_of_bounds, dest_h, dest_w)
     if plan is not None:
         kmin, mmin, n_k, n_m = plan
-        return _warp_shift(img, inv, out_of_bounds, kmin, mmin, dest_h, dest_w, n_k, n_m)
+        return warp_cuda.warp_shift(img, inv, out_of_bounds, kmin, mmin, dest_h, dest_w, n_k,
+                                    n_m)
     return _warp(img, inv, out_of_bounds, dest_h, dest_w)
 
 
@@ -235,8 +242,9 @@ def _project_sharded(img, inv, plan, out_of_bounds: float, dest_h: int, dest_w: 
     def warp(src, row0, rows, src_row0):
         if plan is not None:
             kmin, mmin, n_k, n_m = plan
-            return _warp_shift(src, inv, out_of_bounds, kmin, mmin, dest_h, dest_w, n_k, n_m,
-                               row0=row0, rows=rows, src_row0=src_row0, src_h=src_h)
+            return warp_cuda.warp_shift(src, inv, out_of_bounds, kmin, mmin, dest_h, dest_w,
+                                        n_k, n_m, row0=row0, rows=rows, src_row0=src_row0,
+                                        src_h=src_h)
         return _warp(src, inv, out_of_bounds, dest_h, dest_w, row0=row0, rows=rows,
                      src_row0=src_row0, src_h=src_h)
 
