@@ -4,20 +4,28 @@ comparison catches them and for reading their numbers on the card:
 - "half": every stack call sees only the first half of its frames, the
   mean taken over the rest;
 - "altered": the stacked value of the first 2% of pixels comes out 1% too
-  high, where the stacking kernel's wrapper produces it.
+  high, where the stacking kernel's wrapper produces it;
+- "exchange": the exchange between cards left out, for a sharded job
+  (`-shard`): every all-gather to the lead card (parallel/mesh.py,
+  RowSharded.gather) takes the lead's own rows and zeros for every other
+  card's.
 
-A stack job on one card has no state carried between steps and no exchange
-between cards, so the other faults of the list have nothing to break.
+A stack job has no state carried between steps, so the fault of a step
+that returns its state unchanged has nothing to break; on one card the
+"exchange" fault has none either.
 """
 
 from __future__ import annotations
 
 import contextlib
 
+import torch
+
 from benchmark_torch import phases
 
 TARGETS = (("nightlight_tpu_torch.ops.stack_cuda", "stack_sigma"),
            ("nightlight_tpu_torch.ops.stack_cuda", "stack_linfit"))
+GATHER = (("nightlight_tpu_torch.parallel.mesh", "RowSharded.gather"),)
 
 
 def _half(fn, target):
@@ -35,7 +43,20 @@ def _altered(fn, target):
     return broken
 
 
-FAULTS = {"half": _half, "altered": _altered}
+def _exchange(fn, target):
+    def broken(self, *args, **kwargs):
+        if self.replicated:
+            return fn(self, *args, **kwargs)
+        lead = self.mesh.lead
+        blocks = [self.blocks[0].to(lead)]
+        blocks += [torch.zeros(b.shape, dtype=b.dtype, device=lead) for b in self.blocks[1:]]
+        return torch.cat(blocks, dim=-2)
+    return broken
+
+
+# name: (what it patches, how)
+FAULTS = {"half": (TARGETS, _half), "altered": (TARGETS, _altered),
+          "exchange": (GATHER, _exchange)}
 
 
 @contextlib.contextmanager
@@ -43,5 +64,5 @@ def planted(name: str | None):
     if not name:
         yield
         return
-    with phases.patched(TARGETS, FAULTS[name]):
+    with phases.patched(*FAULTS[name]):
         yield

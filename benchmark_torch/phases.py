@@ -10,7 +10,8 @@ phases_wrapped, with the phases given by the per-layer metric files
 on threads of its own), and the first entry and last exit of each job.
 
 The synchronisations add waits, so the clock runs only in traced runs; the
-device trace (profile.py) is taken with it off.
+device trace (profile.py) is taken with it off. Each waits for every card of
+the cell, since a sharded job queues work on all of them.
 """
 
 from __future__ import annotations
@@ -24,18 +25,22 @@ import time
 
 import torch
 
+from benchmark_torch import cards as cardlist
+
 PACKAGE = "nightlight_tpu_torch"
 
 
 class PhaseClock:
     """Exclusive seconds and entries per phase of the wrapped functions,
     and the span from the first entry to the last exit of the current
-    job."""
+    job. With `sync`, each entry and exit first waits for `cards` (every
+    visible card by default)."""
 
-    def __init__(self, phases, sync: bool = True):
+    def __init__(self, phases, sync: bool = True, cards=None):
         self.seconds = {name: 0.0 for name in phases}
         self.entries = {name: 0 for name in phases}
         self.sync = sync and torch.cuda.is_available()
+        self.cards = list(cardlist.visible() if cards is None else cards)
         self._local = threading.local()
         self._lock = threading.Lock()
         self.first_entry = self.last_exit = None
@@ -53,7 +58,7 @@ class PhaseClock:
         def timed(*args, **kwargs):
             stack = self._stack()
             if self.sync:
-                torch.cuda.synchronize()
+                cardlist.synchronize(self.cards)
             start = time.perf_counter()
             with self._lock:
                 if self.first_entry is None:
@@ -63,7 +68,7 @@ class PhaseClock:
                 return fn(*args, **kwargs)
             finally:
                 if self.sync:
-                    torch.cuda.synchronize()
+                    cardlist.synchronize(self.cards)
                 _, start, nested = stack.pop()
                 end = time.perf_counter()
                 spent = end - start

@@ -1,11 +1,25 @@
-"""The device trace of whole jobs: which seconds the card was busy, the
+"""The device trace of whole jobs: which seconds each card was busy, the
 device time of each kernel, the calls' shapes for the roofline, and what
 the host was doing in each idle gap.
 
 Jobs run under torch.profiler (CPU and CUDA activities) with the phase
-functions' calls timed on the host (no synchronisation added). The
-busy seconds are the union of the intervals of the device's kernels,
-copies and sets; the window is the host's wall around the profiled jobs.
+functions' calls timed on the host (no synchronisation added). A card's
+busy seconds are the union of the intervals of its own kernels, copies and
+sets; the window is the host's wall around the profiled jobs, which starts
+and ends with every card of the cell idle.
+
+On more than one card (a sharded job):
+- busy_s is the mean of the cards' busy seconds, so that the idle share
+  (metrics/device.idle.py) is the mean of the cards' idle shares: how long
+  a card waits, where the union of all cards would read "some card busy"
+  and hide three idle cards behind one busy one; busy_s_by_card lists each;
+- the breakdown's idle gaps are the gaps in which no card is busy, booked
+  to what the host was doing;
+- a kernel's device seconds, and the breakdown's device operations, are
+  summed over the cards: a sharded stack makes one call a shard, each with
+  its own bound, so the roofline share stays the calls' bounds over their
+  device time.
+With one card every one of these is the one-card reading.
 """
 
 from __future__ import annotations
@@ -15,6 +29,7 @@ import time
 
 import torch
 
+from benchmark_torch import cards as cardlist
 from benchmark_torch import phases, roofline
 
 # the wrappers whose calls a roofline needs: (module, attribute, kernel)
@@ -71,8 +86,9 @@ CLOCK_MARK = "benchmark:clock"
 
 
 def _device_events(prof):
-    """(name, start_ns, end_ns) of every kernel, copy and set on a card, and
-    the start of the CLOCK_MARK range on the trace's clock."""
+    """(name, card, start_ns, end_ns) of every kernel, copy and set on a
+    card (its CUDA device index), and the start of the CLOCK_MARK range on
+    the trace's clock."""
     device, clock = [], None
     cuda = torch.autograd.DeviceType.CUDA
     for e in prof.profiler.kineto_results.events():
@@ -81,7 +97,7 @@ def _device_events(prof):
         if e.device_type() == cuda:
             # a range's mirror on the device timeline is no device work
             if name != CLOCK_MARK and not getattr(e, "is_user_annotation", lambda: False)():
-                device.append((name, start, start + e.duration_ns()))
+                device.append((name, e.device_index(), start, start + e.duration_ns()))
         elif name == CLOCK_MARK:
             clock = start
     return device, clock
@@ -109,6 +125,15 @@ def union(intervals):
         else:
             merged.append([s, e])
     return merged
+
+
+def busy_by_card(device, n: int):
+    """(the mean of cards 0 .. n-1's busy seconds, each card's): a card's
+    are the union of its own operations' intervals ((name, card, start_ns,
+    end_ns) events); a card with none counts in the mean at 0."""
+    by_card = [sum(e - s for s, e in union([(s, e) for _, k, s, e in device if k == card]))
+               * 1e-9 for card in range(n)]
+    return sum(by_card) / n, by_card
 
 
 def idle_by_phase(merged, marks, t0: int, t1: int) -> dict:
@@ -140,10 +165,12 @@ def idle_by_phase(merged, marks, t0: int, t1: int) -> dict:
     return out
 
 
-def profile_jobs(run_job, targets: dict, min_seconds: float) -> dict:
+def profile_jobs(run_job, targets: dict, min_seconds: float, cards: list) -> dict:
     """Run whole jobs under the profiler until min_seconds have passed (one
-    at least). Returns the busy and window seconds, the device seconds and
-    summed bounds of each kernel, and the breakdown."""
+    at least), waiting for every card of `cards` (the cell's) before and
+    after. Returns the busy seconds (the cards' mean) and each card's, the
+    window seconds, the device seconds and summed bounds of each kernel,
+    and the breakdown."""
     calls, marks = [], []
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -152,7 +179,7 @@ def profile_jobs(run_job, targets: dict, min_seconds: float) -> dict:
         with torch.profiler.record_function(CLOCK_MARK):
             pass
         with phases.phases_marked(targets, marks), calls_recorded(calls):
-            torch.cuda.synchronize()
+            cardlist.synchronize(cards)
             t0 = time.perf_counter()
             jobs = 0
             while True:
@@ -160,20 +187,21 @@ def profile_jobs(run_job, targets: dict, min_seconds: float) -> dict:
                 jobs += 1
                 if time.perf_counter() - t0 >= min_seconds:
                     break
-            torch.cuda.synchronize()
+            cardlist.synchronize(cards)
             window_s = time.perf_counter() - t0
     device, clock = _device_events(prof)
     if not device:
         raise RuntimeError("the device trace holds no device operation")
     offset = clock - mine if clock is not None else 0
     marks = [(name, s + offset, e + offset) for name, s, e in marks]
-    merged = union([(s, e) for _, s, e in device])
-    busy_s = sum(e - s for s, e in merged) * 1e-9
+    # no card of the cell busy: the idle gaps and the trace's span
+    merged = union([(s, e) for _, _, s, e in device])
+    busy_s, by_card = busy_by_card(device, len(cards))
     # the trace's own span of the jobs: the host ranges and the device work
     t_lo = min([s for _, s, _ in marks] + [merged[0][0]])
     t_hi = max([e for _, _, e in marks] + [merged[-1][1]])
     by_name = {}
-    for name, s, e in device:
+    for name, _, s, e in device:
         by_name[name] = by_name.get(name, 0.0) + (e - s) * 1e-9
     kernels = {}
     for kernel, (n, bound) in bounds_by_kernel(calls).items():
@@ -184,6 +212,7 @@ def profile_jobs(run_job, targets: dict, min_seconds: float) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     top = [(short_name(k), v) for k, v in top]
     gaps = sorted(idle.items(), key=lambda kv: -kv[1])[:10]
-    return {"jobs": jobs, "busy_s": busy_s, "window_s": window_s, "kernels": kernels,
+    return {"jobs": jobs, "busy_s": busy_s, "busy_s_by_card": by_card,
+            "window_s": window_s, "kernels": kernels,
             "breakdown": {"device_ops": [[k, v] for k, v in top],
                           "idle_gaps": [[k, v] for k, v in gaps]}}

@@ -23,10 +23,23 @@ last there and as the last lines of standard error.
 
 --control also computes the control, the reference in bfloat16, and
 reports its numbers beside the program's; --fault plants a fault (faults.py)
-under the timed path. Neither is part of a benchmark run.
+under the timed path; --log keeps a copy of the program's log. None is part
+of a benchmark run.
+
+A cell runs on exactly its cards, cuda:0 .. cuda:chips-1 (cards.py): main
+hides the others before CUDA starts, so the port's -shard meshes those
+alone. Every synchronisation waits for each of them, since a sharded job
+leaves work queued on every card. The device's peak (peak_mem_gib) is the
+largest of the cards' peaks, each reset after the inputs are made: the
+fullest card sets how large a night fits, where a sum would count the
+shards' blocks as one card's; each card's is in memory_peak_bytes_by_card.
+busy_s is the mean of the cards' busy seconds (profile.py), so device.idle
+is the mean of the cards' idle shares, how long a card waits; each card's
+is in busy_s_by_card. With one card every number is the one-card reading.
 
 Without a CUDA card, or with fewer cards than the cell asks for, it exits
-with code 2 and prints no result.
+with code 2 and prints no result; with JAX or the JAX package loaded once
+the window has closed, with code 3 and no result.
 """
 
 from __future__ import annotations
@@ -114,6 +127,26 @@ def set_cache_dirs(root: Path) -> None:
     os.environ["TRITON_CACHE_DIR"] = str(root / "build" / "triton")
 
 
+def visible_cards(chips: int, env: str | None) -> str:
+    """The CUDA_VISIBLE_DEVICES that shows a cell of `chips` cards exactly
+    its own: the first `chips` entries of the list already set (`env`), in
+    its order, or cards 0 .. chips-1 where none is set. A host with fewer
+    cards leaves fewer visible, and main refuses the run."""
+    if env is None:
+        return ",".join(str(k) for k in range(chips))
+    return ",".join(e.strip() for e in env.split(",")[:chips])
+
+
+FORBIDDEN = ("jax", "jaxlib", "flax", "nightlight_tpu")
+
+
+def forbidden_modules(modules) -> list:
+    """The loaded modules whose top-level name, whole, is JAX's, Flax's or
+    the JAX package's (nightlight_tpu_torch is the port, not the JAX
+    package)."""
+    return sorted({m.split(".")[0] for m in modules} & set(FORBIDDEN))
+
+
 def card_line() -> str:
     try:
         return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -125,19 +158,22 @@ def card_line() -> str:
 
 def run_cell(bench, cell, config, traffic, seed: int, seconds: float, trace: bool,
              device="cuda:0", t_start: float | None = None, control: bool = False,
-             fault: str | None = None, generator: dict | None = None) -> dict:
+             fault: str | None = None, generator: dict | None = None,
+             keep_log: str | None = None) -> dict:
     """One run of the cell; returns the result object. The traffic's
     "generator" overrides keys of the configuration's generator (how the
     lights vary: the order of seeings, dithers and rotations, the
-    trails), and `generator` overrides both (the tests' small sizes)."""
+    trails), and `generator` overrides both (the tests' small sizes).
+    `keep_log` is a file the program's log is copied to at the end."""
     import torch
 
-    from benchmark_torch import compare, faults, gen, jobs, phases, profile, reference
+    from benchmark_torch import cards, compare, faults, gen, jobs, phases, profile, reference
 
     t_start = process_start() if t_start is None else t_start
     set_cache_dirs(ROOT)
     dev = torch.device(device)
     on_card = dev.type == "cuda"
+    cell_cards = cards.of_cell(cell["chips"]) if on_card else []
     from nightlight_tpu_torch import kernels
 
     if on_card:
@@ -155,22 +191,20 @@ def run_cell(bench, cell, config, traffic, seed: int, seconds: float, trace: boo
     try:
         inputs = gen.generate(params, int(traffic["lights"]), seed, work, dev)
         os.chdir(work)
-        if on_card:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
+        cards.synchronize(cell_cards)
+        cards.reset_peaks(cell_cards)
         gc.collect()
         with faults.planted(fault):
             runner = jobs.make_jobs(traffic, dev, log)
             t0 = time.perf_counter()
             first_ok = runner.run(0)
-            if on_card:
-                torch.cuda.synchronize()
+            cards.synchronize(cell_cards)
             first_job_s = time.perf_counter() - t0
             if not first_ok:
                 raise RuntimeError(f"the warm-up job failed; the program's log ends:\n"
                                    f"{_tail(log)}")
             setup_s = time.time() - t_start
-            clock = phases.PhaseClock(targets) if trace else None
+            clock = phases.PhaseClock(targets, cards=cell_cards) if trace else None
             spans = []
             sample = random.Random(seed)
             kept = set()
@@ -180,8 +214,7 @@ def run_cell(bench, cell, config, traffic, seed: int, seconds: float, trace: boo
                     clock.start_job()
                 j0 = time.perf_counter()
                 ok = runner.run(k)
-                if on_card:
-                    torch.cuda.synchronize()
+                cards.synchronize(cell_cards)
                 if clock:
                     spans.append((j0, time.perf_counter(), clock.first_entry, clock.last_exit))
                 # what is compared: the first job, a sample drawn from the
@@ -202,13 +235,14 @@ def run_cell(bench, cell, config, traffic, seed: int, seconds: float, trace: boo
             attempted, failed = len(rows), sum(not ok for _, ok in rows)
             k = len(rows) + 1
             counts1 = kernels.launch_counts()
-            peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+            peaks = cards.peaks(cell_cards) if on_card else [0]
+            peak = max(peaks)
             traced = None
             if trace:
                 if on_card:
                     print(f"card: {card_line()}", flush=True)
                 traced = profile.profile_jobs(lambda: runner.run(k), targets,
-                                              min(2.0, seconds)) if on_card else None
+                                              min(2.0, seconds), cell_cards) if on_card else None
         runner.close()
         runner = None
         gc.collect()
@@ -252,9 +286,12 @@ def run_cell(bench, cell, config, traffic, seed: int, seconds: float, trace: boo
                        "metrics": metrics,
                        "device": {"platform": "gpu" if on_card else dev.type,
                                   "kind": torch.cuda.get_device_name(dev) if on_card else "cpu",
-                                  "count": 1, "memory_peak_bytes": int(peak)}})
+                                  "count": len(cell_cards) if on_card else 1,
+                                  "memory_peak_bytes": int(peak),
+                                  "memory_peak_bytes_by_card": peaks}})
         if traced:
-            result["device"].update(busy_s=traced["busy_s"], window_s=traced["window_s"])
+            result["device"].update(busy_s=traced["busy_s"], window_s=traced["window_s"],
+                                    busy_s_by_card=traced["busy_s_by_card"])
             result["breakdown"] = traced["breakdown"]
         result["check"] = check
         return result
@@ -262,6 +299,8 @@ def run_cell(bench, cell, config, traffic, seed: int, seconds: float, trace: boo
         if runner is not None:
             runner.close()
         log.close()
+        if keep_log:
+            shutil.copyfile(log.name, keep_log)
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
 
@@ -302,10 +341,15 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     ap.add_argument("--control", action="store_true",
                     help="also compute the bfloat16 control and report its numbers")
-    ap.add_argument("--fault", choices=("half", "altered"), default=None,
+    ap.add_argument("--fault", choices=("half", "altered", "exchange"), default=None,
                     help="plant a fault under the timed path")
+    ap.add_argument("--log", default=None, help="copy the program's log to this file")
     a = ap.parse_args(argv)
     bench, cell, config, traffic = load_cell(a.workload)
+    # before CUDA starts, so that neither the harness nor the program's mesh
+    # sees a card the cell did not ask for
+    os.environ["CUDA_VISIBLE_DEVICES"] = visible_cards(int(cell["chips"]),
+                                                       os.environ.get("CUDA_VISIBLE_DEVICES"))
     import torch
 
     if not torch.cuda.is_available() or torch.cuda.device_count() < int(cell["chips"]):
@@ -314,7 +358,13 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     result = run_cell(bench, cell, config, traffic, a.seed, a.seconds, bool(a.trace),
-                      t_start=t_start, control=a.control, fault=a.fault)
+                      t_start=t_start, control=a.control, fault=a.fault,
+                      keep_log=a.log and os.path.abspath(a.log))
+    loaded = forbidden_modules(list(sys.modules))
+    if loaded:
+        print(f"benchmark: the run loaded {', '.join(loaded)}; the port's benchmark "
+              f"may load neither JAX nor the JAX package", file=sys.stderr)
+        return 3
     if "control" in result:
         print("control " + " ".join(f"{k} {v}" for k, v in result["control"].items()),
               file=sys.stderr)

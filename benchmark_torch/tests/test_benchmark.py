@@ -12,8 +12,10 @@ planted faults, and that the yardstick's arithmetic is right.
 from __future__ import annotations
 
 import ast
+import copy
 import json
 import math
+import os
 import re
 import time
 from pathlib import Path
@@ -21,7 +23,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from benchmark_torch import compare, gen, phases, profile, reference, roofline, run
+from benchmark_torch import cards, compare, faults, gen, phases, profile, reference, roofline, run
 
 HERE = Path(__file__).resolve().parents[1]
 ROOT = HERE.parent
@@ -76,10 +78,30 @@ def test_metric_entries():
             assert m["unit"] == "%" and m["source"] == "device_trace"
 
 
+def card_faults(bench: dict, name: str, traffic: dict) -> list:
+    """What cell `name` of `bench`, with its traffic file, breaks of the
+    rule on cards: chips is 1 or 4; at most max(1, cells // 4) cells take
+    four; a four-card cell runs CLI jobs, every run with -shard, so that
+    the program meshes the cell's cards (run.main shows it those alone)."""
+    cells = bench["workloads"]
+    entry = next(w for w in cells if w["name"] == name)
+    out = []
+    if entry["chips"] not in (1, 4):
+        out.append("chips")
+    if sum(w["chips"] == 4 for w in cells) > max(1, len(cells) // 4):
+        out.append("quota")
+    if entry["chips"] == 4:
+        if traffic.get("kind") != "cli":
+            out.append("kind")
+        elif not all("-shard" in r["argv"] for r in traffic["runs"]):
+            out.append("shard")
+    return out
+
+
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_files(cell):
     bench, entry, config, traffic = run.load_cell(cell, ROOT)
-    assert entry["chips"] == 1
+    assert card_faults(bench, cell, traffic) == []
     conf = next(c for c in bench["configs"] if c["name"] == entry["config"])
     assert (ROOT / conf["file"]).is_file()
     assert config["name"] == conf["name"] and config["source"] == conf["source"]
@@ -90,6 +112,53 @@ def test_cell_files(cell):
     e2e = [m["name"] for m in run.cell_metrics(bench, entry, "end_to_end")]
     assert "setup_s" in e2e and len(e2e) >= 2
     assert run.cell_metrics(bench, entry, "per_layer")
+
+
+def _sharded(traffic: dict) -> dict:
+    return dict(traffic, runs=[dict(r, argv=["-shard", *r["argv"]]) for r in traffic["runs"]])
+
+
+@pytest.mark.parametrize("case,expected", [
+    ("one four-card cell", []), ("two four-card cells of four", ["quota"]),
+    ("two four-card cells of eight", []), ("four-card run without -shard", ["shard"]),
+    ("four-card served cell", ["kind"]), ("two cards", ["chips"])])
+def test_card_rule_on_synthetic_benchmarks(case, expected):
+    bench = copy.deepcopy(BENCH)
+    cells = bench["workloads"]
+    if "eight" in case:
+        cells += [dict(w, name=w["name"] + ".b") for w in copy.deepcopy(cells)]
+    name = "mono16.served.n24" if "served" in case else "mono16.n10"
+    traffic = run.load_cell(name, ROOT)[3]
+    if "-shard" not in case and "served" not in case:
+        traffic = _sharded(traffic)
+    four = [name] + (["mono16.n100"] if case.startswith("two four") else [])
+    for w in cells:
+        if w["name"] in four:
+            w["chips"] = 2 if case == "two cards" else 4
+    assert card_faults(bench, name, traffic) == expected
+
+
+@pytest.mark.parametrize("chips,env,expected", [
+    (1, None, "0"), (4, None, "0,1,2,3"), (1, "0,1,2,3,4,5,6,7", "0"),
+    (4, "0,1,2,3,4,5,6,7", "0,1,2,3"), (4, "5, 4,7,6,0", "5,4,7,6"), (4, "1,2", "1,2"),
+    (1, "", "")])
+def test_visible_cards(chips, env, expected):
+    assert run.visible_cards(chips, env) == expected
+
+
+def test_main_shows_the_cell_its_cards_alone(monkeypatch, capsys):
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "0,1,2,3,4,5,6,7")
+    assert run.main(["--workload", "mono16.n10", "--seed", "5", "--seconds", "1"]) == 2
+    assert os.environ["CUDA_VISIBLE_DEVICES"] == "0"
+    assert capsys.readouterr().out == ""
+
+
+@pytest.mark.parametrize("loaded,expected", [
+    (["torch", "nightlight_tpu_torch", "nightlight_tpu_torch.ops", "jaxtyping"], []),
+    (["jax.numpy", "torch"], ["jax"]), (["nightlight_tpu.ops.stack"], ["nightlight_tpu"]),
+    (["flax", "jaxlib.xla_client"], ["flax", "jaxlib"])])
+def test_forbidden_modules_by_whole_top_level_name(loaded, expected):
+    assert run.forbidden_modules(loaded) == expected
 
 
 def test_reference_named_by_the_traffic():
@@ -132,7 +201,9 @@ def test_yardstick_imports_nothing_of_the_program(module):
         assert not name.startswith("nightlight_tpu_torch"), (module, name)
 
 
-def test_run_refuses_without_a_card(capsys):
+def test_run_refuses_without_a_card(capsys, monkeypatch):
+    # main narrows the visible cards; monkeypatch restores them afterwards
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "0")
     assert not torch.cuda.is_available()
     assert run.main(["--workload", CELLS[0], "--seed", "5", "--seconds", "1",
                      "--trace", "0"]) == 2
@@ -232,6 +303,83 @@ def test_union_and_idle_gaps():
     assert idle == pytest.approx({"load": 20e-9, "save": 45e-9})
 
 
+def _events(*cards_and_intervals):
+    return [(f"kernel{i}", k, s, e) for i, (k, s, e) in enumerate(cards_and_intervals)]
+
+
+def test_busy_by_card_is_each_cards_own_union():
+    device = _events((0, 10, 20), (1, 15, 30), (0, 15, 25), (1, 40, 50), (1, 45, 46))
+    mean, by_card = profile.busy_by_card(device, 2)
+    assert by_card == pytest.approx([15e-9, 25e-9])
+    assert mean == pytest.approx(20e-9)
+    # a card of the cell with no work counts in the mean at 0
+    mean3, by_card3 = profile.busy_by_card(device, 3)
+    assert by_card3[2] == 0 and mean3 == pytest.approx(40e-9 / 3)
+    # device.idle of the mean is the mean of the cards' idle shares
+    window = 60e-9
+    idle = run.load_metric("device.idle").read({"busy_s": mean, "window_s": window})
+    assert idle == pytest.approx(sum(100 * (1 - b / window) for b in by_card) / 2)
+
+
+def test_busy_on_one_card_is_the_union_of_every_event():
+    device = _events((0, 10, 20), (0, 15, 30), (0, 40, 50), (0, 50, 55), (0, 7, 8))
+    merged = profile.union([(s, e) for _, _, s, e in device])
+    mean, by_card = profile.busy_by_card(device, 1)
+    assert mean == by_card[0] == sum(e - s for s, e in merged) * 1e-9
+
+
+def test_peaks_are_read_on_every_card():
+    read = {0: 5 << 30, 1: 9 << 30, 2: 7 << 30, 3: 1 << 30}
+    cell = cards.of_cell(4)
+    assert [c.index for c in cell] == [0, 1, 2, 3]
+    peaks = cards.peaks(cell, read=lambda c: read[c.index])
+    assert peaks == [5 << 30, 9 << 30, 7 << 30, 1 << 30] and max(peaks) == 9 << 30
+    assert cards.peaks(cards.of_cell(1), read=lambda c: read[c.index]) == [5 << 30]
+
+
+def test_waits_and_resets_cover_every_card(monkeypatch):
+    seen = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda d: seen.append(("sync", d.index)))
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda d: seen.append(("reset", d.index)))
+    cards.synchronize(cards.of_cell(4))
+    cards.reset_peaks(cards.of_cell(2))
+    assert seen == [("sync", 0), ("sync", 1), ("sync", 2), ("sync", 3), ("reset", 0),
+                    ("reset", 1)]
+    seen.clear()
+    clock = phases.PhaseClock(["p"], cards=cards.of_cell(4))
+    clock.sync = True
+    clock.wrap("p", lambda: None)()
+    assert seen == [("sync", k) for k in range(4)] * 2
+
+
+def test_exchange_fault_keeps_the_lead_rows_alone():
+    from nightlight_tpu_torch.parallel import mesh
+
+    m = mesh.make_mesh([torch.device("cpu")] * 4)
+    x = torch.arange(2 * 8 * 3, dtype=torch.float32).reshape(2, 8, 3) + 1
+    sharded = mesh.shard_rows(m, x)
+    with faults.planted("exchange"):
+        broken = mesh.gather(sharded)
+        assert torch.equal(mesh.gather(mesh.replicated(m, x)), x)
+    assert torch.equal(broken[:, :2], x[:, :2]) and not broken[:, 2:].any()
+    assert torch.equal(mesh.gather(sharded), x)
+
+
+def test_detection_phase_wraps_the_sharded_detector():
+    from nightlight_tpu_torch.parallel import mesh
+
+    targets = phases.phase_targets([run.load_metric("detect.stars_s")])
+    clock = phases.PhaseClock(targets, sync=False)
+    m = mesh.make_mesh([torch.device("cpu")] * 4)
+    g = torch.Generator().manual_seed(3)
+    img = 100.0 + torch.randn((256, 256), generator=g)
+    img[100:103, 60:63] += 500.0
+    with phases.phases_wrapped(clock, targets):
+        mesh.sharded_star_detect(m, 16)(img, 100.0, 1.0, 15.0, 5.0, 1.4, None)
+    assert clock.entries["detect"] == 1 and clock.seconds["detect"] > 0
+
+
 def test_phase_clock_books_exclusive_seconds():
     clock = phases.PhaseClock(["outer", "inner"], sync=False)
     inner = clock.wrap("inner", lambda: time.sleep(0.05))
@@ -316,6 +464,13 @@ def test_planted_fault_is_not_correct(fault):
     assert not _run("mono16.n10", fault=fault)["correct"]
 
 
+def test_exchange_fault_has_nothing_to_break_unsharded(tmp_path):
+    res = _run("mono16.n10", fault="exchange", keep_log=str(tmp_path / "program.log"))
+    assert res["correct"]
+    log = (tmp_path / "program.log").read_text()
+    assert "stack" in log.lower() and "Sharding frames" not in log
+
+
 def test_traced_run_reports_the_layers():
     res = _run("mono16.n10", trace=True)
     m = res["metrics"]
@@ -323,3 +478,4 @@ def test_traced_run_reports_the_layers():
                  "align.align_s", "resample.warp_s", "stack.stack_s", "pipeline.rest_s"):
         assert m[name]["value"] > 0, name
     assert "job_s" not in m
+    assert res["device"]["count"] == 1 and res["device"]["memory_peak_bytes_by_card"] == [0]
