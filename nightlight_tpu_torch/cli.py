@@ -304,6 +304,22 @@ is an independent rebuild.
 """
 
 
+def shard_mesh(device, log_writer):
+    """-shard's mesh: every attached card, or None (running unsharded)
+    where one device is attached or the device is the CPU."""
+    from nightlight_tpu_torch.parallel.mesh import make_mesh
+
+    on_cards = device is None or torch.device(device).type == "cuda"
+    cards = torch.cuda.device_count() if on_cards else 1
+    if cards > 1:
+        mesh = make_mesh()
+        log_writer.write(f"Sharding frames over {cards} devices\n")
+        return mesh
+    log_writer.write("-shard requested but only one device attached; "
+                     "running unsharded\n")
+    return None
+
+
 def main(argv=None, device=None) -> int:
     """Run the CLI on `device` (default cuda:0). Without a CUDA device it
     raises unless the caller passes device="cpu". The command is one span
@@ -362,18 +378,7 @@ def _run(parser, args, device, session: dict) -> int:
         device = torch.device(device) if device is not None else default_device()
     if args.allowAbsolutePaths:
         opmod.ALLOW_ABSOLUTE_PATHS = True
-    mesh = None
-    if args.shard:
-        from nightlight_tpu_torch.parallel.mesh import make_mesh
-
-        on_cards = device is None or torch.device(device).type == "cuda"
-        cards = torch.cuda.device_count() if on_cards else 1
-        if cards > 1:
-            mesh = make_mesh()
-            log_writer.write(f"Sharding frames over {cards} devices\n")
-        else:
-            log_writer.write("-shard requested but only one device attached; "
-                             "running unsharded\n")
+    mesh = shard_mesh(device, log_writer) if args.shard else None
 
     try:
         if pipeline:

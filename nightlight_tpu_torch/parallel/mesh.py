@@ -86,6 +86,21 @@ class Mesh:
 GATHERS: collections.Counter = collections.Counter()
 trace.source("mesh.gathers", lambda: GATHERS)
 
+# the most rows a shard takes from each neighbour for a warp by halo
+# exchange (sharded_full_pipeline_step_auto; the batch planner counts it
+# on every frame's shard)
+HALO_CAP = 128
+
+
+def _moved(site: str, t: torch.Tensor) -> None:
+    """Count t's bytes, copied from one shard to another, in the tracer's
+    mesh.bytes under `site`: from its shape, with no wait and no read.
+    Counted: a gather's blocks of every shard but the lead's (under the
+    gather's site), the rows a halo brings from the neighbours ("halo")
+    and the blocks a split sends from the lead to the other shards
+    ("rows"); an upload from host memory is no copy between shards."""
+    trace.count("mesh.bytes", site, t.numel() * t.element_size())
+
 
 class RowSharded:
     """A (..., H, W) value over a mesh: ``blocks`` holds the (..., H/n, W)
@@ -134,6 +149,8 @@ class RowSharded:
         if self.replicated:
             return self.blocks[0]
         GATHERS[site] += 1
+        for b in self.blocks[1:]:
+            _moved(site, b)
         lead = self.mesh.lead
         return torch.cat([_to(b, lead) for b in self.blocks], dim=-2)
 
@@ -177,6 +194,9 @@ def shard_rows(mesh: Mesh, data) -> RowSharded:
     rows = data.shape[-2] // n
     blocks = [_to(data[..., k * rows:(k + 1) * rows, :], dev).contiguous()
               for k, dev in enumerate(mesh.devices)]
+    if data.device == mesh.lead:
+        for b in blocks[1:]:
+            _moved("rows", b)
     return RowSharded(mesh, data.shape, blocks)
 
 
@@ -245,7 +265,9 @@ def _rows_to(x: RowSharded, start: int, stop: int, device: torch.device) -> list
     parts = []
     for j in range(start // rows, -(-stop // rows)):
         lo, hi = max(start, j * rows) - j * rows, min(stop, (j + 1) * rows) - j * rows
-        parts.append(_to(x.blocks[j][..., lo:hi, :], device))
+        part = x.blocks[j][..., lo:hi, :]
+        _moved("halo", part)
+        parts.append(_to(part, device))
     return parts
 
 
@@ -549,6 +571,9 @@ def _warp_frames_halo(frames, invs, mesh: Mesh, halo: int, axis: str = "pix") ->
         # receives zeros
         top = blocks[k - 1][:, -halo:, :] if k > 0 else None
         bot = blocks[k + 1][:, :halo, :] if k + 1 < n_shards else None
+        for part in (top, bot):
+            if part is not None:
+                _moved("halo", part)
         recv_top = (_to(top, dev) if top is not None
                     else torch.zeros_like(fl[:, -halo:, :]))
         recv_bot = (_to(bot, dev) if bot is not None
@@ -598,7 +623,7 @@ def required_halo(invs, dest_h: int, dest_w: int) -> int:
 def sharded_full_pipeline_step_auto(mesh: Mesh, invs,
                                     mode: int = int(stk.StackMode.Sigma),
                                     dest_h: int = 0, dest_w: int = 0,
-                                    halo_cap: int = 128, axis: str = "pix", log=None):
+                                    halo_cap: int = HALO_CAP, axis: str = "pix", log=None):
     """Pick the warp strategy from the batch's ACTUAL transforms: the
     halo-exchange warp with a halo sized to the largest row displacement
     (bucketed to powers of two), or the gather-warp step when the

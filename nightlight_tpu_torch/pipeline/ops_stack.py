@@ -331,13 +331,49 @@ class OpStackBatches(Operator):
             return int((free + cached) // (1 << 20))
         return 1 << 30
 
+    @staticmethod
+    def _mesh_share(c: Context, device_mb: dict, width: int, height: int, radius: int):
+        """What each device of c.mesh holds of a frame, for a plan that
+        counts the mesh: ((MiB rounded up, bytes) of one shard's rows, the
+        halo the warp takes above and below included, [(usable MiB from
+        `device_mb`, shards, MiB besides the frames)] per distinct device).
+        Besides the frames the lead holds whole frames at the save (the
+        gathered stack and the writers' two working copies) and the sharded
+        detector's merged candidate lists and patches. None where the rows
+        do not divide the mesh: the frames are then replicated on the lead,
+        and the lead alone is counted."""
+        from nightlight_tpu_torch.detect.stars import MAX_CANDIDATES
+        from nightlight_tpu_torch.parallel import mesh as pm
+
+        mesh = c.mesh
+        if not pm.divides(mesh, (height, width)):
+            return None
+        shard_bytes = (height // mesh.size + 2 * pm.HALO_CAP) * width * 4
+        patch = 4 * radius + 1
+        lead_mib = (3 * width * height * 4
+                    + MAX_CANDIDATES * (12 * mesh.size + 5 * patch * patch)) >> 20
+        shards = {}
+        for d in mesh.devices:
+            shards[d] = shards.get(d, 0) + 1
+        return (-(-shard_bytes // (1 << 20)), shard_bytes), [
+            (device_mb[d], n, lead_mib if d == mesh.lead else 0) for d, n in shards.items()]
+
     def _partition(self, ins, c: Context):
-        """Memory-budget solver + random permutation (stackbatches.go:121-210)."""
+        """Memory-budget solver + random permutation (stackbatches.go:121-210).
+
+        Under c.mesh (-shard) each device holds its shard's rows of every
+        frame, so the device budget counts each device's memory against
+        its shards' rows (_mesh_share), the smallest count of frames over
+        the devices binding; without a mesh, or with frames replicated on
+        the lead, the context's device alone is counted, as in the JAX
+        package."""
         num_frames = len(ins)
         # measured before any frame is loaded: the read-ahead loader starts
         # reading at the first frame taken, and its frames on the device
         # must not move the plan
         device_mb = self._device_memory_mb(c.device)
+        mesh_mb = (None if c.mesh is None
+                   else {d: self._device_memory_mb(d) for d in c.mesh.devices})
         if c.dark_frame is not None:
             width, height = c.dark_frame.naxisn[0], c.dark_frame.naxisn[1]
         elif c.flat_frame is not None:
@@ -354,25 +390,47 @@ class OpStackBatches(Operator):
         c.logf("%d images of %dx%d pixels (%.1f MPixels), which each take %d MiB in-memory"
                " as floating point.\n", num_frames, width, height, pixels * 1e-6, mib)
 
+        radius = (self.fused_spec.star_radius if self.fused_spec is not None else 0) or 16
+        share = (None if mesh_mb is None
+                 else self._mesh_share(c, mesh_mb, width, height, radius))
+
+        # a frame's (MiB, bytes) on each device, and the devices as
+        # [(usable MiB, shards, MiB besides the frames)]: the whole frame
+        # on the context's device, or under a mesh its shard (_mesh_share)
+        frame, devices = ((mib, nbytes), [(device_mb, 1, 0)]) if share is None else share
+
+        def device_frames(tenths: int, reserve_mb: int, per_frame) -> int:
+            """Frames that `tenths` of a device's memory, less reserve_mb
+            and what it holds besides, takes at per_frame(MiB, bytes of a
+            frame) bytes a frame: the least over the devices."""
+            return min((max(0, mb * tenths // 10 - reserve_mb - extra) << 20)
+                       // (shards * per_frame(*frame)) for mb, shards, extra in devices)
+
+        host_frames = (c.stack_memory_mb << 20) // nbytes
+        # Under -shard the stack takes the per-frame path (models/fastpath.py)
+        # but keeps its fused spec, so the mesh is budgeted with the fused
+        # executor's constants (detection's working set, 2x and 2.5x the
+        # frames): a margin, not a model of the sharded per-frame path.
         if self.fused_spec is not None:
             # detection's candidate working set per DETECT_CHUNK slice, in
             # the JAX package's (8, 128)-tiled units, plus 2x the frames
             from nightlight_tpu_torch.detect.stars import MAX_CANDIDATES
             from nightlight_tpu_torch.models.fastpath import DETECT_CHUNK
 
-            patch = 4 * (self.fused_spec.star_radius or 16) + 1
+            patch = 4 * radius + 1
             detect_ws_mb = (DETECT_CHUNK * MAX_CANDIDATES
                             * ((patch + 15) // 8 * 8) * ((patch + 127) // 128 * 128)
                             * 4 * 6) >> 20
-            dev_budget_mb = device_mb * 5 // 10
-            dev_frames = max(0, dev_budget_mb - detect_ws_mb) // max(1, 2 * mib)
-            available_frames = min((c.stack_memory_mb << 20) // nbytes, dev_frames)
+            available_frames = min(host_frames, device_frames(
+                5, detect_ws_mb, lambda m, b: max(1, 2 * m) << 20))
         else:
-            budget_mb = min(c.stack_memory_mb, device_mb * 6 // 10)
-            available_frames = (budget_mb << 20) // nbytes
+            available_frames = min(host_frames, device_frames(6, 0, lambda m, b: b))
+        counted = "" if share is None else (
+            " on the mesh's %d devices (%d MiB a frame's shard, the least device %d MiB)"
+            % (c.mesh.size, frame[0], min(mb for mb, _, _ in devices)))
         c.logf("CPU has %d threads. Physical memory is %d MiB, -op.Memory is %d MiB,"
-               " this fits %d frames.\n", c.max_threads, c.memory_mb, c.stack_memory_mb,
-               available_frames)
+               " this fits %d frames%s.\n", c.max_threads, c.memory_mb, c.stack_memory_mb,
+               available_frames, counted)
 
         def solve(avail):
             max_threads = c.max_threads
@@ -411,11 +469,10 @@ class OpStackBatches(Operator):
             # frame each), read ahead while this batch holds its float32
             # frames through the warp: 2.5x instead of 2x the frame size
             # per frame. Re-solve with it, as the JAX package does.
-            dev_budget_mb = device_mb * 5 // 10
-            dev_frames_r = max(0, dev_budget_mb - detect_ws_mb) // max(1, 2 * mib + (mib + 1) // 2)
-            num_batches, batch_size, max_threads = solve(
-                min((c.stack_memory_mb << 20) // nbytes, dev_frames_r))
+            num_batches, batch_size, max_threads = solve(min(host_frames, device_frames(
+                5, detect_ws_mb, lambda m, b: max(1, 2 * m + (m + 1) // 2) << 20)))
             self._prefetch_bytes = batch_size * (nbytes // 2)
+        trace.count("stack.batches", "device" if share is None else "mesh", num_batches)
         c.logf("Using %d random batches of size %d with %d images in parallel.\n",
                num_batches, batch_size, max_threads)
         ins_perm = list(ins)

@@ -22,12 +22,15 @@ below by layer. ``records()`` returns what was recorded, ``clear()`` drops it.
 Counters are always on. ``count(name, key)`` adds to the tracer's own:
 ``host.reads`` (blocking host reads by the innermost layer span),
 ``detect.candidates`` (the candidates that survive detection's phase 2,
-those its phases 3-6 work on) and ``load.inline_reads`` (frames a
+those its phases 3-6 work on), ``load.inline_reads`` (frames a
 read-ahead loader's consumer read itself, over every loader; each loader
-keeps its own ``inline_reads`` besides). The counters that other modules
-keep under their own names (``kernels.launch_counts()``,
-``parallel.mesh.GATHERS``) are read through ``source`` where they live,
-never copied: ``counters()`` returns them all.
+keeps its own ``inline_reads`` besides), ``stack.batches`` (the batches
+each stack plans, keyed "mesh" where the plan counted the mesh's devices,
+else "device") and ``mesh.bytes`` (bytes copied between the shards of a
+device mesh, counted from shapes, by gather site, "halo" and "rows").
+The counters that other modules keep under their own names
+(``kernels.launch_counts()``, ``parallel.mesh.GATHERS``) are read through
+``source`` where they live, never copied: ``counters()`` returns them all.
 
 A blocking read is a device-to-host copy, a read of a value (``int(t)``,
 ``float(t)``, ``.tolist()``), an op whose output size the host must learn
