@@ -23,7 +23,14 @@
    shift-blend warp) at the shift buckets 2, 4 and 8 on a sky with NaN and
    +-inf pixels, the edges too, two fills, a block call and
    warp_shift_batch on 8 frames, its ms a warped frame required under 0.5
-   (warp_cases); K5 column
+   (warp_cases); K8 (phases 3-6 of star detection) on find_stars' own
+   inputs from a 4096^2 and a 9576 x 6388 light at radius 16 and 8, bit
+   for bit its host mirror (csrc/detect_finish_host.cpp, built with g++)
+   and the sharded feed, the plain version within tolerance (a star's
+   value other than the plain version's only where two candidates tie),
+   at least 380 and 1,100 phase-2 survivors, and find_stars_sharded on 4
+   shards bit for bit find_stars (finish_cases,
+   before step 4); K5 column
    and tiled and K6 tiled at 128/256/512/1024 threads per block on (40,
    2^21) samples, the tiled layout in both designs (bulk_ring and the port's
    first, smem_sort; timed in turns, bulk_ring required the faster) and held bit
@@ -161,6 +168,9 @@ KERNELS = {
     "gather_patches": (CSRC + "gather_patches.cu", "nightlight_tpu/ops/gather_pallas.py:41"),
     # no TPU kernel: the JAX package's shift-blend warp is XLA
     "warp_shift": (CSRC + "warp_shift.cu", "none (XLA: nightlight_tpu/ops/resample.py:57)"),
+    # no TPU kernel: the JAX package's detection phases 3-6 are XLA
+    "detect_finish": (CSRC + "detect_finish.cu",
+                      "none (XLA: nightlight_tpu/detect/stars.py _find_stars_device)"),
 }
 SORT_SRC = CSRC + "sort_sum.cu"
 SORT_REPLACES = {"column": "scripts/microbench_layout.py:56",   # run_flat
@@ -728,6 +738,274 @@ def warp_cases(size: int, kernels) -> list:
                  "batch_call_ms": batch_ms, "frames": n, "buckets": [n_k, n_m], **work,
                  "share_of_bound": work["bound_ms"] / per_frame})
     del frames, img, block
+    torch.cuda.empty_cache()
+    return rows
+
+
+# the K8 lights: name, rows, columns, stars, and the fewest phase-2
+# survivors the light must leave (the benchmark's cells detect about 440 a
+# 16.8 MP light and 1,280 a 61 MP one; this light model tops out near 1,200
+# at 61 MP, where the 2,048 brightest candidates fill the capacity)
+FINISH_LIGHTS = [("16mp", 4096, 4096, 1060, 380), ("61mp", 6388, 9576, 4200, 1100)]
+
+
+def star_light(gen, h: int, w: int, n: int, device):
+    """A (h, w) calibrated light on the card with mono16mp's values
+    (benchmark_torch/configs/mono16mp.json) made simple: sky 1000 ADU, n
+    stars of FWHM 3.65 px at random places (one in five beside another, 5-20
+    px away) with the quantiles of N(>F) ~ F^-0.8 over 3,000 to 3,000,000
+    ADU as fluxes, read noise 8 ADU and shot noise at 2 e-/ADU, and the hot
+    pixels a master dark leaves behind, one in 10,000, within 10% of 300-6,000
+    ADU."""
+    import torch
+
+    u = lambda *shape: torch.rand(shape, generator=gen, device=device)  # noqa: E731
+    pos = u(n, 2) * torch.tensor([h - 48.0, w - 48.0], device=device) + 24.0
+    pair = n // 5
+    pos[1:1 + pair] = pos[:pair] + (u(pair, 2) * 15.0 + 5.0) * torch.where(
+        u(pair, 2) < 0.5, -1.0, 1.0)
+    pos[:, 0].clamp_(14.0, h - 15.0)
+    pos[:, 1].clamp_(14.0, w - 15.0)
+    q = (torch.randperm(n, generator=gen, device=device).to(torch.float32) + 0.5) / n
+    flux = (3000.0 * q ** (-1.0 / 0.8)).clamp(max=3e6)
+    sigma = 3.65 / 2.3548
+    offs = torch.arange(-12, 13, device=device)
+    cy, cx = pos[:, 0].floor().long(), pos[:, 1].floor().long()
+    yy = cy[:, None, None] + offs[None, :, None]
+    xx = cx[:, None, None] + offs[None, None, :]
+    stamp = flux[:, None, None] / (2 * math.pi * sigma ** 2) * torch.exp(
+        -((yy - pos[:, 0, None, None]) ** 2 + (xx - pos[:, 1, None, None]) ** 2)
+        / (2 * sigma ** 2))
+    yy, xx = yy.expand_as(stamp), xx.expand_as(stamp)
+    img = torch.full((h, w), 1000.0, device=device)
+    img.index_put_((yy.reshape(-1), xx.reshape(-1)), stamp.reshape(-1), accumulate=True)
+    img += torch.sqrt(64.0 + img / 2.0) * torch.randn((h, w), generator=gen, device=device)
+    hot = torch.randint(0, h * w, (h * w // 10_000,), generator=gen, device=device)
+    img.view(-1)[hot] += (300.0 + 5700.0 * u(hot.shape[0])) * (u(hot.shape[0]) * 0.2 - 0.1)
+    return img.contiguous()
+
+
+def build_finish_mirror(work: str) -> str:
+    """K8's host mirror (csrc/detect_finish_host.cpp) built with g++ as
+    tests/test_torch_detect_finish.py builds it. Returns the program."""
+    gxx = shutil.which("g++")
+    check(gxx is not None, "detect_finish: no g++ for the host mirror")
+    exe = os.path.join(work, "detect_finish_mirror")
+    out = subprocess.run([gxx, "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off",
+                          "-D__host__=", "-D__device__=", "-D__forceinline__=inline", "-I",
+                          os.path.join(ROOT, CSRC), os.path.join(ROOT, CSRC,
+                                                                 "detect_finish_host.cpp"),
+                          "-o", exe], capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"detect_finish mirror: g++ failed: {out.stderr[-2000:]}")
+    return exe
+
+
+def finish_mirror_row(exe: str, work: str, args: tuple, frame: tuple):
+    """The mirror's output row of one frame (keep None: every candidate a
+    survivor), for (location, scale, star_sig, star_in_out, radius)."""
+    from nightlight_tpu_torch.detect import stars
+
+    loc, scale, sig, in_out, radius = args
+    cy, cx, vals, keep, patch, ok = frame
+    k = int(cy.shape[0])
+    src, dst = os.path.join(work, "finish_in.bin"), os.path.join(work, "finish_out.bin")
+    with open(src, "wb") as f:
+        f.write(np.array([k, radius, k, keep is not None], np.int32).tobytes())
+        f.write(np.array([loc, scale, sig, in_out, stars._disk_limit(radius)],
+                         np.float32).tobytes())
+        for a, dtype in ((cy, np.int32), (cx, np.int32), (vals, np.float32), (keep, np.uint8),
+                         (patch, np.float32), (ok, np.uint8)):
+            if a is not None:
+                f.write(np.ascontiguousarray(a.cpu().numpy(), dtype).tobytes())
+    out = subprocess.run([exe, src, dst], capture_output=True, timeout=600)
+    check(out.returncode == 0, f"detect_finish mirror: exit {out.returncode}")
+    return np.fromfile(dst, np.float32)
+
+
+def finish_rows_equal(a, b) -> bool:
+    """Two K8 output rows bit for bit: the head and each field's first
+    count entries (the rest is not written)."""
+    from nightlight_tpu_torch.detect import stars
+
+    head, fields = stars._ROW_HEAD, stars._STAR_FIELDS
+    num = int(a[0])
+    cut = lambda r: r[head:].reshape(fields, -1)[:, :num]  # noqa: E731
+    return (np.array_equal(a[:head].view(np.int32), b[:head].view(np.int32))
+            and np.array_equal(cut(a).view(np.int32), cut(b).view(np.int32)))
+
+
+def finish_errors(got, got_hfr, want, want_hfr) -> dict:
+    """The largest differences of two star lists of one count, place by
+    place: absolute over x, y, mass, hfr and the average HFR; in pixels over
+    x and y; relative over mass, hfr and the average HFR."""
+    pos = max([0.0] + [float(np.abs(getattr(got, f) - getattr(want, f)).max())
+                       for f in ("x", "y")])
+    fields = [(got.mass, want.mass), (got.hfr, want.hfr),
+              (np.float32([got_hfr]), np.float32([want_hfr]))]
+    absolute = max([pos] + [float(np.abs(a - b).max()) for a, b in fields])
+    rel = max(float((np.abs(a - b) / np.maximum(np.abs(b), 1e-30)).max()) for a, b in fields)
+    return {"max_abs_err": absolute, "max_pos_err_px": pos, "max_rel_err": rel}
+
+
+def finish_close(got, got_hfr, want, want_hfr) -> bool:
+    """Within the tolerances of tests/test_torch_stars.py: positions (so the
+    order) to 1e-3 px, masses, HFRs and the average HFR to 1e-4 relative
+    (the sums run in another float32 order)."""
+    err = finish_errors(got, got_hfr, want, want_hfr)
+    return err["max_pos_err_px"] <= 1e-3 and err["max_rel_err"] <= 1e-4
+
+
+def finish_refined(location, scale, star_sig: float, radius: int, compact):
+    """Every phase-2 survivor's value, refined x and y and HFR mass by the
+    plain version's phases 4 and 6, host arrays, for (cy, cx, vals, patch,
+    ok) of the survivors."""
+    from nightlight_tpu_torch.detect import stars
+
+    cy, cx, vals, patch, ok = compact
+    x, y, _, oy, ox, offs = stars._center_of_mass(patch, ok, cy, cx,
+                                                  location + scale * star_sig * 0.5, radius)
+    mass2 = stars._hfr(patch, ok, offs, oy, ox, location, radius)[1]
+    return [t.cpu().numpy() for t in (vals, x, y, mass2)]
+
+
+def is_tie(got, j: int, refined) -> bool:
+    """Whether star j of `got` sits where a phase-2 survivor with its value
+    converged: that candidate's refined place within 1e-3 px and its mass
+    within 1e-4 relative of the star's."""
+    vals, x, y, mass = refined
+    at = vals.view(np.int32) == np.float32(got.value[j]).view(np.int32)
+    return bool((at & (np.abs(x - got.x[j]) <= 1e-3) & (np.abs(y - got.y[j]) <= 1e-3)
+                 & (np.abs(mass - got.mass[j]) <= 1e-4 * abs(got.mass[j]))).any())
+
+
+def finish_cases(work: str, kernels) -> list:
+    """K8 (phases 3-6 of star detection) on the card at the main path's
+    shapes: a 4096^2 light with about 440 phase-2 survivors and a 9576 x
+    6388 one with about 1,200 (FINISH_LIGHTS), each at radius 16 and 8, the `stack`
+    preset's detection arguments (sigma 15, bad-pixel sigma 5 with the
+    stddev computed, in/out 1.4). The frame's inputs are find_stars' own
+    (its _Finish.frame call). Checks: find_stars launches K8 once and its
+    stars are the kernel's row; the row bit for bit the host mirror's and
+    the one fed as find_stars_sharded feeds it (the survivors compacted, no
+    mask); against the plain version _finish on the card, counts equal and
+    finish_close, the largest differences reported, and a star whose value
+    is not the plain version's must be a tie (is_tie: two candidates
+    converged onto it); the light leaves at least its floor of survivors;
+    find_stars_sharded on 4 shards of cuda:0 bit for bit find_stars. Times:
+    K8 a frame, 10 calls back to back and one, the plain version, the
+    whole find_stars; the bound: the survivors' patches (4r+1)^2 x 5 bytes
+    read once at 3.35 TB/s. Returns the kernel table's rows."""
+    import torch
+
+    from nightlight_tpu_torch.detect import stars
+    from nightlight_tpu_torch.parallel import mesh as pmesh
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    exe = build_finish_mirror(work)
+    src, replaces = KERNELS["detect_finish"]
+    rows = []
+    for name, h, w, n, least in FINISH_LIGHTS:
+        img = star_light(gen, h, w, n, dev)
+        loc, scale = float(img.median()), 24.0
+        for radius in (16, 8):
+            frames = []
+
+            class Capture(stars._Finish):
+                def frame(self, *args):
+                    frames.append(args)
+                    super().frame(*args)
+
+            real = stars._Finish
+            kernels.reset_launch_counts()
+            stars._Finish = Capture
+            try:
+                want, want_hfr = stars.find_stars(img, loc, scale, 15.0, 5.0, 1.4, radius)
+            finally:
+                stars._Finish = real
+            check(kernels.launch_counts()["detect_finish"] == 1 and len(frames) == 1,
+                  f"detect_finish {name} r={radius}: {kernels.launch_counts()} launches")
+            _, location, scale_t, sig, in_out, _, cy, cx, vals, keep, patch, ok = frames[0]
+            args = (loc, scale, sig, in_out, radius)
+            k = int(cy.shape[0])
+            survivors = int(keep.sum())
+            check(survivors >= least, f"detect_finish {name}: {survivors} phase-2 survivors, "
+                                      f"fewer than {least}")
+            row = torch.empty(stars._ROW_HEAD + stars._STAR_FIELDS * k, device=dev)
+
+            def launch(keep_=keep, frame=(cy, cx, vals, patch, ok), row_=row, cap=k):
+                fy, fx, fv, fp, fo = frame
+                stars._finish_cuda(row_, cap, location, scale_t, sig, in_out, radius, fy, fx,
+                                   fv, keep_, fp, fo)
+
+            launch()
+            got = row.cpu().numpy()
+            check(int(got[0]) == want.count and int(got[2]) == survivors and np.array_equal(
+                got[stars._ROW_HEAD:stars._ROW_HEAD + want.count].view(np.int32),
+                want.x.view(np.int32)) and float(got[1]) == want_hfr,
+                f"detect_finish {name} r={radius}: find_stars differs from the kernel's row")
+            check(finish_rows_equal(got, finish_mirror_row(exe, work, args, frames[0][6:])),
+                  f"detect_finish {name} r={radius}: kernel differs from the host mirror")
+            at = torch.nonzero(keep)[:, 0]
+            compact = (cy[at], cx[at], vals[at], patch[at], ok[at])
+            row_s = torch.empty(stars._ROW_HEAD + stars._STAR_FIELDS * survivors, device=dev)
+            launch(None, compact, row_s, survivors)
+            check(finish_rows_equal(got, row_s.cpu().numpy()),
+                  f"detect_finish {name} r={radius}: the sharded feed differs")
+
+            def plain():
+                return stars._finish(location, scale_t, torch.tensor(sig, device=dev),
+                                     torch.tensor(in_out, device=dev), radius,
+                                     at.to(torch.float32), *compact)
+
+            p_stars, p_hfr = plain()
+            check(p_stars.count == want.count > 0 and finish_close(want, want_hfr, p_stars, p_hfr),
+                  f"detect_finish {name} r={radius}: {want.count} stars against the "
+                  f"plain version's {p_stars.count}, or beyond the tolerances")
+            # where two candidates converged onto one star their masses tie to
+            # rounding, and which one's value the star keeps follows the sums'
+            # order: such a star's value must be a phase-2 survivor's whose
+            # refined place and mass are the star's
+            duplicates = np.nonzero(want.value.view(np.int32) != p_stars.value.view(np.int32))[0]
+            refined = finish_refined(location, scale_t, sig, radius, compact)
+            check(all(is_tie(want, j, refined) for j in duplicates),
+                  f"detect_finish {name} r={radius}: a star keeps a value that no candidate "
+                  f"converged onto it has")
+            err = finish_errors(want, want_hfr, p_stars, p_hfr)
+            mesh = shard_mesh()
+            sharded = pmesh.sharded_star_detect(mesh, radius)(
+                pmesh.place_on_mesh(img, mesh), loc, scale, 15.0, 5.0, 1.4, None)
+            check(sharded[0].count == want.count and sharded[1] == want_hfr and all(
+                np.array_equal(getattr(sharded[0], f).view(np.int32),
+                               getattr(want, f).view(np.int32))
+                for f in ("x", "y", "value", "mass", "hfr")),
+                f"detect_finish {name} r={radius}: find_stars_sharded differs from find_stars")
+
+            times = kernel_ms(launch)
+            plain_ms = cuda_ms(plain, reps=3)
+            whole_ms = cuda_ms(lambda: stars.find_stars(img, loc, scale, 15.0, 5.0, 1.4,
+                                                        radius), reps=3)
+            size = 4 * radius + 1
+            work_ = bound(5.0 * survivors * size * size, 0.0)
+            say(f"detect_finish {name} ({h}x{w}) r={radius}: {k} candidates, {survivors} "
+                f"phase-2 survivors, {want.count} stars; bit for bit the host mirror and the "
+                f"sharded feed, find_stars_sharded on {SHARDS} shards bit for bit find_stars, "
+                f"the plain version within tolerance (max_abs_err {err['max_abs_err']:.3g}, "
+                f"positions {err['max_pos_err_px']:.3g} px, masses and HFRs "
+                f"{err['max_rel_err']:.3g} relative; {len(duplicates)} stars keep a tied "
+                f"candidate's value); K8 {times['ms']:.4f} ms a frame "
+                f"({times['single_call_ms']:.4f} single call), plain {plain_ms:.3f} ms, "
+                f"find_stars {whole_ms:.3f} ms, bound {work_['bound_ms']:.5f} ms")
+            rows.append({"name": f"detect_finish {name} r={radius}", "kernel": "detect_finish",
+                         "route": "cuda", "source": src, "replaces": replaces,
+                         **err, **times, "plain_ms": plain_ms,
+                         "find_stars_ms": whole_ms, "shape": [k, size, size],
+                         "frame": [h, w], "survivors": survivors, "stars": want.count,
+                         "other_value_than_plain": len(duplicates),
+                         **work_, "share_of_bound": work_["bound_ms"] / times["ms"]})
+            del frames, patch, ok, compact, row, row_s
+        del img
     torch.cuda.empty_cache()
     return rows
 
@@ -1439,11 +1717,18 @@ def pixels_apart(a, b) -> int:
     return int((~((a == b) | (np.isnan(a) & np.isnan(b)))).sum())
 
 
+# the batch planner's "this fits" count, and under a mesh its account of
+# the devices it counted (pipeline/ops_stack.py _partition): the one
+# planner line where a sharded job's log differs from the unsharded one's
+FITS_CLAUSE = re.compile(r"this fits \d+ frames( on the mesh's \d+ devices \(\d+ MiB a "
+                         r"frame's shard, the least device \d+ MiB\))?")
+
+
 def same_lines(log_s: str, log_u: str, outs) -> bool:
     """The two jobs' log lines after the JSON echo equal, the outputs'
-    names and the fused-off line's reason blanked."""
+    names, the fused-off line's reason and the planner's count blanked."""
     def lines(log, out):
-        return [PER_FRAME if ln.startswith(PER_FRAME) else ln
+        return [PER_FRAME if ln.startswith(PER_FRAME) else FITS_CLAUSE.sub("this fits N", ln)
                 for ln in job_lines(log.replace(out, "OUT"))]
     return lines(log_s, outs[0]) == lines(log_u, outs[1])
 
@@ -2028,6 +2313,7 @@ def main() -> int:
     walls = {}
     peaks = {}
     try:
+        rows += finish_cases(work, kernels)
         t0 = time.perf_counter()
         all_lights = [os.path.basename(p) for p in fixtures.gen(work, 48, size, seed=7)]
         lights = all_lights[:30]
@@ -2061,6 +2347,7 @@ def main() -> int:
             check(counts[kernel] > 0, f"stack {name}: {kernel} never launched")
             check(counts["gather_patches"] > 0, f"stack {name}: gather_patches never launched")
             check(counts["warp_shift"] > 0, f"stack {name}: warp_shift never launched")
+            check(counts["detect_finish"] > 0, f"stack {name}: detect_finish never launched")
             check_output(nlfits, out, size)
             os.remove(out)
 

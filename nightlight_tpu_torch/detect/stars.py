@@ -19,9 +19,17 @@ candidate index for tie-breaks): the results for every surviving candidate
 are the ones the fixed-capacity arrays give, at a fraction of the work.
 The K4 gather still runs over the full capacity, as in the JAX package.
 
+On a card phases 3 to 6 and the compaction of a frame are one call of
+kernel K8 (csrc/detect_finish.cu), which takes the phase-2 mask and writes
+the frame's row of a buffer that covers the chunk; the chunk's star lists
+come back in one read (_Finish). On the CPU the plain version _finish runs.
+find_stars_batch runs phases 1 and 2 on the whole chunk, then K4 and K8
+frame by frame; find_stars is a chunk of one.
+
 A row-sharded frame (parallel/mesh.py RowSharded) is detected on its shards
 (find_stars_sharded): phases 1-2 and K4 on each shard's block with a halo,
-the candidate lists merged on the lead, which finishes phases 3-6.
+the candidate lists merged on the lead, which finishes phases 3-6 through
+the same _Finish.
 """
 
 from __future__ import annotations
@@ -31,8 +39,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from nightlight_tpu_torch import trace
-from nightlight_tpu_torch.ops.gather_cuda import gather_patches, patches_plain
+from nightlight_tpu_torch import kernels, trace
+from nightlight_tpu_torch.ops.gather_cuda import gather_patches
 from nightlight_tpu_torch.ops.prestack import bad_pixel_stats, median9
 
 MAX_CANDIDATES = 2048
@@ -40,6 +48,12 @@ MAX_CANDIDATES = 2048
 _SELECT_TILE = 16384  # flat elements per tile
 _SELECT_KT = 32       # per-tile candidate capacity of the tiled branch
 _SELECT_MIN_N = 1 << 22  # below ~4M pixels the flat selection is used
+
+# K8's output row of a frame: count, average HFR, phase-2 survivors, then the
+# kept stars' x, y, value, mass, hfr, each `capacity` floats
+# (csrc/detect_finish.cuh kHead, kStarFields)
+_ROW_HEAD = 3
+_STAR_FIELDS = 5
 
 
 @dataclass
@@ -66,12 +80,33 @@ def _f32(v, device) -> torch.Tensor:
     return trace.upload(v, device, torch.float32)
 
 
-def _patches(img, cys, cxs, radius: int):
-    """Index-clamped window gather on any device: the 3x3 neighbourhood of
-    the bad-pixel test reads clamped edge pixels unmasked, as the JAX
-    package's XLA `_patches` does there. It is also K4's plain version; K4
-    itself serves only the masked centre-of-mass window."""
-    return patches_plain(img, cys, cxs, radius)
+def _host_f32(v) -> torch.Tensor:
+    """A 0-d float32 tensor on the CPU: an operand that PyTorch hands a
+    kernel on a card by value, with no upload."""
+    return torch.tensor(v, dtype=torch.float32)
+
+
+def _per_frame(device, *columns):
+    """Each column of per-frame values as a float32 vector on `device`: a
+    tensor already there as it is, the host columns (numbers, arrays, CPU
+    tensors) with one upload for all of them."""
+    out = list(columns)
+    host = [i for i, c in enumerate(columns)
+            if not (isinstance(c, torch.Tensor) and c.device == device)]
+    for i, c in enumerate(columns):
+        if i not in host:
+            out[i] = c.to(torch.float32).reshape(-1)
+    if host:
+        up = trace.upload(np.stack([np.asarray(columns[i], dtype=np.float32).reshape(-1)
+                                    for i in host]), device)
+        for row, i in enumerate(host):
+            out[i] = up[row]
+    return out
+
+
+def _disk_limit(radius: int) -> float:
+    """The HFR disk's squared radius (findstars.go:341)."""
+    return float(np.ceil(np.float32((radius + 1e-8) * (radius + 1e-8))))
 
 
 def _overlap_filter(x, y, mass, valid, idx, radius: float):
@@ -176,6 +211,15 @@ def _select_brightest(cand_vals: torch.Tensor, max_candidates: int, most=None):
     return vals, idx
 
 
+def _offset_step(o, d, radius: int):
+    """o + round(d) clamped to [-radius, radius] in the JAX package's int32
+    arithmetic: the rounded shift converted as XLA converts it (a NaN to 0,
+    beyond int32 saturated) and the sum wrapping, as int64 tensors."""
+    r = torch.nan_to_num(torch.round(d), nan=0.0).clamp(-2.0 ** 31, 2.0 ** 31).to(torch.int64)
+    s = o + r.clamp(-2 ** 31, 2 ** 31 - 1)
+    return ((s + 2 ** 31) % 2 ** 32 - 2 ** 31).clamp(-radius, radius)
+
+
 def _center_of_mass(patch, ok, cy0, cx0, threshold, radius: int):
     """Iterative CoM refinement of all candidates at once
     (findstars.go:274-322) inside one (K, 4r+1, 4r+1) patch per candidate,
@@ -200,7 +244,9 @@ def _center_of_mass(patch, ok, cy0, cx0, threshold, radius: int):
         oxf = ox.to(torch.float32)
         wy = (offs[None, :] - oyf[:, None]).abs() <= radius
         wx = (offs[None, :] - oxf[:, None]).abs() <= radius
-        v = val * (wy[:, :, None] & wx[:, None, :])
+        # the window selects, as XLA compiles the JAX package's val * mask: a
+        # NaN or infinite pixel outside it adds nothing
+        v = torch.where(wy[:, :, None] & wx[:, None, :], val, zero)
         m = v.sum(dim=(1, 2))
         m = torch.where(m == 0.0, torch.full((), 1e-8, device=dev), m)
         dx = (v * (offs[None, None, :] - oxf[:, None, None])).sum(dim=(1, 2)) / m
@@ -208,8 +254,8 @@ def _center_of_mass(patch, ok, cy0, cx0, threshold, radius: int):
         new_x = cx0.to(torch.float32) + oxf + dx
         new_y = cy0.to(torch.float32) + oyf + dy
         s2 = (new_x - px) ** 2 + (new_y - py) ** 2
-        new_oy = (oy + torch.round(dy).to(torch.int64)).clamp(-big + radius, big - radius)
-        new_ox = (ox + torch.round(dx).to(torch.int64)).clamp(-big + radius, big - radius)
+        new_oy = _offset_step(oy, dy, radius)
+        new_ox = _offset_step(ox, dx, radius)
         oy = torch.where(active, new_oy, oy)
         ox = torch.where(active, new_ox, ox)
         px = torch.where(active, new_x, px)
@@ -227,7 +273,7 @@ def _hfr(patch, ok, offs, oy, ox, location, radius: int):
     dy = offs[None, :, None] - oy.to(torch.float32)[:, None, None]
     dx = offs[None, None, :] - ox.to(torch.float32)[:, None, None]
     dist2 = dy * dy + dx * dx
-    dist2_limit = float(np.ceil(np.float32((radius + 1e-8) * (radius + 1e-8))))
+    dist2_limit = _disk_limit(radius)
     in_disk = (dist2 <= dist2_limit) & ok
     v0 = torch.clamp(torch.where(ok, patch, zero) - location, min=0.0)
     v = torch.where(in_disk, v0, zero)
@@ -247,10 +293,16 @@ def _hfr(patch, ok, offs, oy, ox, location, radius: int):
 
 def _bad_pixel_ok(img, cy, cx, values, bp_sig, bp_threshold):
     """Phase 2: whether each candidate passes the bad-pixel test against
-    its 9-neighbourhood median (all pass when bp_sig <= 0)."""
-    p9, _ = _patches(img, cy, cx, 1)
-    med = median9([p9[:, j // 3, j % 3] for j in range(9)])
-    diff = values - med
+    its 9-neighbourhood median (all pass when bp_sig <= 0), for the (..., K)
+    candidates (cy, cx, values) of (..., H, W) frames; bp_threshold
+    broadcasts against them. The neighbourhood reads index-clamped edge
+    pixels unmasked, as the JAX package's XLA `_patches` does there."""
+    h, w = img.shape[-2], img.shape[-1]
+    flat = img.reshape(*img.shape[:-2], h * w)
+    cy, cx = cy.to(torch.int64), cx.to(torch.int64)
+    taps = [torch.gather(flat, -1, (cy + dy).clamp(0, h - 1) * w + (cx + dx).clamp(0, w - 1))
+            for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+    diff = values - median9(taps)
     return (bp_sig <= 0.0) | (diff.abs() < bp_threshold)
 
 
@@ -260,7 +312,7 @@ def _finish(location, scale, star_sig, star_in_out, radius: int, cand, cy_k, cx_
     candidate order: `cand` their candidate indices (float32), (cy_k, cx_k)
     their int32 centres in the frame, `vals_k` their values, (patch_k,
     ok_k) their K4 windows of radius 2r. Returns a StarList and the
-    average HFR."""
+    average HFR. K8's plain version: _Finish runs it for CPU tensors only."""
     dev = vals_k.device
     x = cx_k.to(torch.float32)
     y = cy_k.to(torch.float32)
@@ -291,31 +343,82 @@ def _finish(location, scale, star_sig, star_in_out, radius: int, cand, cy_k, cx_
     return stars, float(trace.to_host(avg_hfr))
 
 
-def _find_stars_one(img, location, scale, star_sig, bp_sig, star_in_out, radius: int,
-                    median_diff_std, values, flat_idx):
-    """Phases 2-6 for one frame from its selected candidates. Returns a
-    StarList and the average HFR."""
-    dev = img.device
-    h, w = img.shape
-    f32 = lambda v: _f32(v, dev)  # noqa: E731
-    location, scale = f32(location), f32(scale)
-    star_sig, bp_sig, star_in_out = f32(star_sig), f32(bp_sig), f32(star_in_out)
-    valid = values > -float("inf")
-    cy = torch.div(flat_idx, w, rounding_mode="floor").to(torch.int32)
-    cx = (flat_idx % w).to(torch.int32)
+def _finish_cuda(row, capacity: int, location, scale, star_sig: float, star_in_out: float,
+                 radius: int, cy, cx, vals, keep, patch, ok):
+    """K8 on one frame's K candidates: (cy, cx) int32 centres, `vals`
+    float32 values, `keep` their phase-2 mask (bool, or None when all
+    survived), (patch, ok) their K4 windows of radius 2r, at most
+    MAX_CANDIDATES; location and scale 0-d float32 on the card. Writes the
+    frame's row of _ROW_HEAD + _STAR_FIELDS * capacity floats."""
+    named = [(patch, "patch", torch.float32), (ok, "ok", torch.bool), (cy, "cy", torch.int32),
+             (cx, "cx", torch.int32), (vals, "vals", torch.float32),
+             (location, "location", torch.float32), (scale, "scale", torch.float32),
+             (row, "row", torch.float32)]
+    if keep is not None:
+        named.append((keep, "keep", torch.bool))
+    for t, name, dtype in named:
+        kernels.require_cuda(t, f"detect_finish {name}", dtype)
+    k = int(cy.shape[0])
+    size = 4 * radius + 1
+    if (tuple(patch.shape) != (k, size, size) or ok.shape != patch.shape
+            or cx.shape != cy.shape or vals.shape != cy.shape or cy.dim() != 1
+            or (keep is not None and keep.shape != cy.shape)
+            or location.numel() != 1 or scale.numel() != 1
+            or tuple(row.shape) != (_ROW_HEAD + _STAR_FIELDS * capacity,)):
+        raise ValueError("detect_finish: shapes do not match the candidates")
+    if radius < 0 or k > capacity or k > MAX_CANDIDATES:
+        raise ValueError(f"detect_finish: {k} candidates (capacity {capacity}, at most "
+                         f"{MAX_CANDIDATES}), radius {radius}")
+    res = torch.empty((6, k), dtype=torch.float32, device=row.device)
+    err = kernels.library().nl_detect_finish(
+        patch.data_ptr(), ok.data_ptr(), cy.data_ptr(), cx.data_ptr(), vals.data_ptr(),
+        None if keep is None else keep.data_ptr(), k, int(radius), location.data_ptr(),
+        scale.data_ptr(), float(star_sig), float(star_in_out), _disk_limit(radius),
+        res.data_ptr(), row.data_ptr(), capacity, *kernels.launch_on(row.device))
+    kernels.check(err, "detect_finish")
+    kernels.count_launch("detect_finish")
 
-    # phase 2: bad-pixel rejection against the 9-neighbourhood median
-    valid &= _bad_pixel_ok(img, cy, cx, values, bp_sig, f32(median_diff_std) * bp_sig)
 
-    # phase 4's patch: K4 over the full candidate capacity
-    patch, ok = gather_patches(img, cy, cx, 2 * radius)
+class _Finish:
+    """Phases 3-6 of a chunk's frames, one frame at a time (frame), then
+    the chunk's star lists and average HFRs (read). On a card each frame is
+    one K8 call, which writes the frame's row of one buffer, and read
+    fetches every row with one blocking read; the phase-2 survivors a frame
+    come from the row too (detect.candidates). On the CPU each frame runs
+    the plain version _finish. A CUDA tensor never reaches _finish."""
 
-    # phases 3-6 on the phase-2 survivors only (module docstring)
-    with trace.host_read(valid.device):
-        keep = torch.nonzero(valid)[:, 0]
-    trace.count("detect.candidates", n=int(keep.shape[0]))
-    return _finish(location, scale, star_sig, star_in_out, radius, keep.to(torch.float32),
-                   cy[keep], cx[keep], values[keep], patch[keep], ok[keep])
+    def __init__(self, frames: int, capacity: int, device: torch.device):
+        self.capacity = capacity
+        self.rows = (None if device.type == "cpu" else
+                     torch.empty((frames, _ROW_HEAD + _STAR_FIELDS * capacity),
+                                 dtype=torch.float32, device=device))
+        self.done = []
+
+    def frame(self, i: int, location, scale, star_sig: float, star_in_out: float,
+              radius: int, cy, cx, vals, keep, patch, ok):
+        """Frame i from its candidates as _finish_cuda takes them."""
+        if self.rows is not None:
+            _finish_cuda(self.rows[i], self.capacity, location, scale, star_sig, star_in_out,
+                         radius, cy, cx, vals, keep, patch, ok)
+            return
+        at = torch.arange(cy.shape[0]) if keep is None else torch.nonzero(keep)[:, 0]
+        trace.count("detect.candidates", n=int(at.shape[0]))
+        self.done.append(_finish(location, scale, _host_f32(star_sig), _host_f32(star_in_out),
+                                 radius, at.to(torch.float32), cy[at], cx[at], vals[at],
+                                 patch[at], ok[at]))
+
+    def read(self):
+        """([StarList], [avg HFR]) of the frames in order."""
+        if self.rows is None:
+            return [st for st, _ in self.done], [hf for _, hf in self.done]
+        stars, hfrs = [], []
+        for row in trace.to_host(self.rows).numpy():
+            num = int(row[0])
+            trace.count("detect.candidates", n=int(row[2]))
+            fields = row[_ROW_HEAD:].reshape(_STAR_FIELDS, self.capacity)[:, :num]
+            stars.append(StarList(*(np.ascontiguousarray(f) for f in fields), count=num))
+            hfrs.append(float(row[1]))
+        return stars, hfrs
 
 
 @trace.span("detect")
@@ -323,22 +426,33 @@ def find_stars_batch(imgs: torch.Tensor, locations, scales, star_sig: float,
                      bp_sig: float, star_in_out: float, radius: int, median_diff_stds,
                      max_candidates: int = MAX_CANDIDATES):
     """Detection for a (B, H, W) chunk of frames with per-frame location,
-    scale and median-difference stddev. Returns ([StarList], [avg HFR])."""
+    scale and median-difference stddev (host values, uploaded at once, or
+    tensors on the chunk's device). Phases 1 and 2 run on the whole chunk,
+    K4 and phases 3-6 frame by frame (each frame's patches freed after its
+    finish), and the chunk's results come back in one read.
+    Returns ([StarList], [avg HFR])."""
     dev = imgs.device
-    loc = _f32(locations, dev).reshape(-1)
-    sc = _f32(scales, dev).reshape(-1)
-    threshold = loc + sc * _f32(star_sig, dev)
+    w = imgs.shape[-1]
+    loc, sc, mds = _per_frame(dev, locations, scales, median_diff_stds)
+    threshold = loc + sc * _host_f32(star_sig)
     cv = _candidate_values(imgs, threshold)
     vals, idx = _select_brightest(cv, max_candidates)
     del cv
-    stars, hfrs = [], []
+    vals = vals.contiguous()
+    cy = torch.div(idx, w, rounding_mode="floor").to(torch.int32)
+    cx = (idx % w).to(torch.int32)
+
+    # phase 2: bad-pixel rejection against the 9-neighbourhood median
+    keep = (vals > -float("inf")) & _bad_pixel_ok(imgs, cy, cx, vals, bp_sig,
+                                                   (mds * _host_f32(bp_sig))[:, None])
+
+    # K4 over the full candidate capacity, phases 3-6 on the survivors
+    finish = _Finish(imgs.shape[0], vals.shape[-1], dev)
     for i in range(imgs.shape[0]):
-        s, hf = _find_stars_one(imgs[i], loc[i], sc[i], star_sig, bp_sig, star_in_out,
-                                radius, _f32(median_diff_stds, dev).reshape(-1)[i],
-                                vals[i], idx[i])
-        stars.append(s)
-        hfrs.append(hf)
-    return stars, hfrs
+        patch, ok = gather_patches(imgs[i], cy[i], cx[i], 2 * radius)
+        finish.frame(i, loc[i], sc[i], star_sig, star_in_out, radius, cy[i], cx[i], vals[i],
+                     keep[i], patch, ok)
+    return finish.read()
 
 
 @trace.span("detect")
@@ -347,12 +461,13 @@ def find_stars(img: torch.Tensor, location, scale, star_sig: float, bp_sig: floa
                max_candidates: int = MAX_CANDIDATES):
     """Run star detection on one (H, W) image. Returns (StarList, avg_hfr).
     With median_diff_std None and bp_sig > 0, the stddev of the
-    image-minus-3x3-median map is computed here."""
-    if median_diff_std is None:
-        median_diff_std = float(trace.to_host(bad_pixel_stats(img)[1])) if bp_sig > 0 else 0.0
+    image-minus-3x3-median map is computed here (and stays on the card)."""
+    if median_diff_std is None and bp_sig > 0:
+        mds = bad_pixel_stats(img)[1].reshape(1)
+    else:
+        mds = [0.0 if median_diff_std is None else float(median_diff_std)]
     stars, hfrs = find_stars_batch(img[None], [float(location)], [float(scale)], star_sig,
-                                   bp_sig, star_in_out, radius, [float(median_diff_std)],
-                                   max_candidates)
+                                   bp_sig, star_in_out, radius, mds, max_candidates)
     return stars[0], hfrs[0]
 
 
@@ -375,17 +490,19 @@ def find_stars_sharded(x, location, scale, star_sig: float, bp_sig: float,
     the haloed block, and where the block's edge is the frame's, K4's
     in-frame mask and the 3x3 clamp are the whole frame's. A shard without
     candidates launches nothing. The lead receives each shard's patches
-    and phase-2 verdicts and runs phases 3-6 (_finish) on the survivors in
-    candidate order, the same tensors as find_stars builds: the
-    per-candidate sums of phases 4 and 6 reduce over as many candidates as
-    there, since a reduction's order on a card may depend on that count.
+    and phase-2 verdicts and runs phases 3-6 (_Finish) on the survivors in
+    candidate order. On a card K8's sums of a candidate run in an order
+    fixed by the radius alone, and its filters and sort see the same
+    survivors in the same order as find_stars' mask gives them, so the
+    result is find_stars' bit for bit.
 
     Host reads: the tile counts of the tiled selection (when a shard is
     large enough to use it), the merged list, and the phase-2 masks, each
-    once for all shards. With median_diff_std None and bp_sig > 0, the
-    stddev of the image-minus-3x3-median map comes from the shards
-    (ops/prestack.py bad_pixel_stats_sharded). A replicated value is
-    detected on its one copy."""
+    once for all shards, then the finished frame's row. With
+    median_diff_std None and bp_sig > 0, the stddev of the
+    image-minus-3x3-median map comes from the shards (ops/prestack.py
+    bad_pixel_stats_sharded). A replicated value is detected on its one
+    copy."""
     from nightlight_tpu_torch.ops.prestack import bad_pixel_stats_sharded
     from nightlight_tpu_torch.parallel import mesh as pm
 
@@ -401,9 +518,9 @@ def find_stars_sharded(x, location, scale, star_sig: float, bp_sig: float,
     big = 2 * radius
     f32 = lambda v: _f32(v, lead)  # noqa: E731
     location, scale = f32(location), f32(scale)
-    star_sig, bp_sig, star_in_out = f32(star_sig), f32(bp_sig), f32(star_in_out)
-    threshold = location + scale * star_sig
-    bp_threshold = f32(median_diff_std) * bp_sig
+    sig, bp = f32(star_sig), f32(bp_sig)
+    threshold = location + scale * sig
+    bp_threshold = f32(median_diff_std) * bp
 
     # phase 1 on every shard, then one read of the tile counts
     parts = pm.halo(x, big, big)
@@ -434,7 +551,7 @@ def find_stars_sharded(x, location, scale, star_sig: float, bp_sig: float,
         cy = torch.from_numpy((cy_h[mine] - (k * rows - top)).astype(np.int32)).to(dev)
         cx = torch.from_numpy(cx_h[mine].astype(np.int32)).to(dev)
         bp_ok = _bad_pixel_ok(ext, cy, cx, torch.from_numpy(vals_h[pos[mine]]).to(dev),
-                              pm._to(bp_sig, dev), pm._to(bp_threshold, dev))
+                              pm._to(bp, dev), pm._to(bp_threshold, dev))
         patch, ok = gather_patches(ext, cy, cx, big)
         sent.append((pos[mine], pm._to(patch, lead), pm._to(ok, lead), pm._to(bp_ok, lead)))
     del parts
@@ -454,9 +571,11 @@ def find_stars_sharded(x, location, scale, star_sig: float, bp_sig: float,
         keep = np.zeros(0, np.int64)
         patch_k = torch.zeros((0, size, size), dtype=torch.float32, device=lead)
         ok_k = torch.zeros((0, size, size), dtype=torch.bool, device=lead)
-    trace.count("detect.candidates", n=len(keep))
     cy_k, cx_k = np.divmod(idx_h[keep], w)
     as_lead = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(lead)  # noqa: E731
-    return _finish(location, scale, star_sig, star_in_out, radius,
-                   as_lead(keep.astype(np.float32)), as_lead(cy_k.astype(np.int32)),
-                   as_lead(cx_k.astype(np.int32)), as_lead(vals_h[keep]), patch_k, ok_k)
+    finish = _Finish(1, len(keep), lead)
+    finish.frame(0, location, scale, star_sig, star_in_out, radius,
+                 as_lead(cy_k.astype(np.int32)), as_lead(cx_k.astype(np.int32)),
+                 as_lead(vals_h[keep]), None, patch_k, ok_k)
+    (stars,), (hfr,) = finish.read()
+    return stars, hfr

@@ -40,8 +40,9 @@ from nightlight_tpu_torch import trace
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("stack_clip.cu", "stack_linfit.cu", "stack_single_pass.cu", "gather_patches.cu",
-           "sort_sum.cu", "warp_shift.cu")
-HEADERS = ("common.cuh", "sortnet.cuh", "single_pass.cuh", "bulk_ring.cuh", "warp_shift.cuh")
+           "sort_sum.cu", "warp_shift.cu", "detect_finish.cu")
+HEADERS = ("common.cuh", "sortnet.cuh", "single_pass.cuh", "bulk_ring.cuh", "warp_shift.cuh",
+           "detect_finish.cuh")
 # -fmad=false: no contraction of a*b+c into one rounding, so the kernels
 # round like the plain PyTorch versions they are checked against
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -49,7 +50,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # kernel name -> launches counted by its wrapper
 KERNEL_NAMES = ("stack_clip", "stack_linfit", "stack_single_pass", "gather_patches",
-                "sort_sum", "warp_shift")
+                "sort_sum", "warp_shift", "detect_finish")
 _launches = {name: 0 for name in KERNEL_NAMES}
 
 # a served job launches from a request handler's thread
@@ -178,6 +179,9 @@ def library() -> ctypes.CDLL:
             lib.nl_warp_shift.argtypes = [vp, i32, i32, i32, i32, *[f32] * 7, i32, i32, i32,
                                           i32, i32, i32, i32, vp, i32, vp]
             lib.nl_warp_shift.restype = i32
+            lib.nl_detect_finish.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, vp, vp, f32, f32,
+                                             f32, vp, vp, i32, i32, vp]
+            lib.nl_detect_finish.restype = i32
             _lib = lib
     return _lib
 

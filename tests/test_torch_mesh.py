@@ -923,4 +923,4 @@ def test_require_cuda_takes_any_card():
             assert first.strip() == "NL_USE_DEVICE(device);", name
             assert re.search(r"int device,\s+(void\* stream|int\* blocks)$", params), name
             entries += 1
-    assert entries == 10
+    assert entries == 11
