@@ -54,7 +54,7 @@
    card (defaults; -stMode 4 -lsEst 1) against the same stacks on the CPU.
 5e. Ingest (nightlight_tpu_torch/io/ingest.py): ooc48, all 48 lights at
    the defaults under the -stMemory for which the port's planner makes 3
-   random batches of 16 (phase_split.plan_st_memory; Python's random
+   random batches of 16 (fixtures.plan_st_memory; Python's random
    seeded), the fused path out of core with the next batch read ahead
    ("Prefetched" lines), then the same with NIGHTLIGHT_NO_PREFETCH=1 (the
    loader reads each batch, but not the next one during this one's
@@ -83,13 +83,11 @@
    the log line for line and the output bit for bit, 4x the K1/K2
    launches and K4 between 1x and 4x (once per shard with candidates),
    each run's wall and peak beside the card's name and power limit;
-   mesh_step16, run_sharded_full_stack and the halo step that
-   sharded_full_pipeline_step_auto picks on 16 lights with the fixture's
-   drift, each bit for bit the unsharded _full_pipeline_step, and
-   stack_sharded against stack on the 16-light cube (K1) and on 30 frames
-   of sky (linear fit, K2), bit for bit with equal clip counts and 4x the
-   launches; cli_shard, the CLI's `stack -shard` (one card: the
-   one-device line and an output bit for bit the run without -shard).
+   mesh_step16, stack_sharded against stack on the cube of 16 lights
+   (winsorized, K1) and on 30 frames of sky (linear fit, K2), bit for bit
+   with equal clip counts and 4x the launches; cli_shard, the CLI's
+   `stack -shard` (one card: the one-device line and an output bit for bit
+   the run without -shard).
 5b. The one-shot-colour chain on RGGB mosaics of the same recipe (16
    lights, mono dark): osc12_G (-debayer G -stMode 3, BASELINE config #3,
    fused), osc16_R_chain (-debayer R with both debands, -preScale 1.5,
@@ -1383,9 +1381,9 @@ def small_commands(cli, fits_mod, fixtures, work: str) -> None:
 
 
 def serve_job(out: str) -> dict:
-    """tests/test_rest.py's live-stacking job (nightlight_tpu_torch/scripts/
-    phase_split.py:live_stacking_job)."""
-    from nightlight_tpu_torch.scripts.phase_split import live_stacking_job
+    """tests/test_rest.py's live-stacking job (nightlight_tpu_torch/
+    fixtures.py:live_stacking_job)."""
+    from nightlight_tpu_torch.fixtures import live_stacking_job
 
     return live_stacking_job(out)
 
@@ -1398,8 +1396,8 @@ def plan_st_memory(n: int, size: int, device, batches: int = 2, flags=None) -> i
     """The smallest -stMemory for which the port's own batch planner splits
     n size^2 frames into `batches` batches of n / batches on this host: a
     JSON job's stackBatches, or the CLI `stack` with `flags`
-    (nightlight_tpu_torch/scripts/phase_split.py:plan_st_memory)."""
-    from nightlight_tpu_torch.scripts.phase_split import plan_st_memory as plan
+    (nightlight_tpu_torch/fixtures.py:plan_st_memory)."""
+    from nightlight_tpu_torch.fixtures import plan_st_memory as plan
 
     try:
         return plan(n, size, device, batches, flags)
@@ -1603,6 +1601,21 @@ def ooc48(cli, fits_mod, kernels, lights, size: int, record) -> None:
     check(same_lines, "ooc48: the log differs without the prefetch")
 
 
+def loader_seconds(spans) -> dict:
+    """The read-ahead loader's seconds in `spans` (trace records): its
+    workers' reads ("workers_read_s", load.read on the read-ahead-*
+    threads), the consumer's waits for them ("wait_s", load.wait) and the
+    pinning of host buffers ("pin_s", load.pin)."""
+    out = {"workers_read_s": 0.0, "wait_s": 0.0, "pin_s": 0.0}
+    for s in spans:
+        key = {"load.wait": "wait_s", "load.pin": "pin_s"}.get(s.name)
+        if s.name == "load.read" and s.thread_name.startswith("read-ahead"):
+            key = "workers_read_s"
+        if key:
+            out[key] += (s.end_ns - s.start_ns) * 1e-9
+    return out
+
+
 def loader_reuse48(fits_mod, lights) -> None:
     """Every light through the read-ahead loader on cuda:0 in a shuffled
     order, as fast as the consumer can take them, its pool of pinned
@@ -1612,7 +1625,6 @@ def loader_reuse48(fits_mod, lights) -> None:
 
     from nightlight_tpu_torch import trace
     from nightlight_tpu_torch.io import ingest
-    from nightlight_tpu_torch.scripts.phase_split import loader_seconds
 
     device = torch.device(OOC_DEVICE)
     ids = {name: i for i, name in enumerate(lights)}
@@ -1976,13 +1988,10 @@ def shard4_detect16(fits_mod, gather_cuda, kernels, lights, size: int) -> dict:
 
 
 def mesh_step16(fits_mod, kernels, lights, size: int, record) -> None:
-    """parallel/mesh.py at full size on 4 shards of cuda:0: the gather-warp
-    step (run_sharded_full_stack) and the step the auto dispatcher picks
-    (the halo exchange) on 16 lights with the fixture's drift plus a
-    sub-pixel offset, each bit for bit against the unsharded
-    _full_pipeline_step; stack_sharded against stack on the 16-light cube
-    (winsorized, K1) and on 30 frames of sky with outliers (linear fit,
-    K2), bit for bit with equal clip counts."""
+    """ops/stack.py stack_sharded at full size on 4 shards of cuda:0
+    against stack on one: the cube of 16 lights (winsorized, K1) and 30
+    frames of sky with outliers (linear fit, K2), bit for bit with equal
+    clip counts and each shard's kernel launched once."""
     import torch
 
     from nightlight_tpu_torch.ops import stack as tstk
@@ -1990,12 +1999,6 @@ def mesh_step16(fits_mod, kernels, lights, size: int, record) -> None:
 
     dev = torch.device(MESH_DEVICE)
     mesh = shard_mesh()
-    frames = np.stack([fits_mod.read_file(n).to_numpy() for n in lights[:16]])
-    dark = fits_mod.read_file("dark.fits").to_numpy()
-    flat = np.random.default_rng(7).uniform(0.8, 1.0, size=dark.shape).astype(np.float32)
-    invs = np.array([[1.0, 0.0, 4.0 * i + 0.25, 0.0, 1.0, -3.0 * i - 0.4] for i in range(16)],
-                    np.float32)
-    ones = torch.ones(16, device=dev)
     counts, walls = {k: 0 for k in kernels.KERNEL_NAMES}, {}
     torch.cuda.reset_peak_memory_stats()
 
@@ -2011,35 +2014,8 @@ def mesh_step16(fits_mod, kernels, lights, size: int, record) -> None:
             counts[k] += v
         return out, got
 
-    ref, ref_counts = timed("unsharded", lambda: pmesh._full_pipeline_step(
-        torch.from_numpy(frames).to(dev), torch.from_numpy(dark).to(dev),
-        torch.from_numpy(flat).to(dev), float(flat.max()), ones, ones, ones, 1.0, 1.0, invs,
-        2.75, 2.75, mode=2))
-    want = ref[0].cpu().numpy()
-    gathered, g_counts = timed("gather_step", lambda: pmesh.run_sharded_full_stack(
-        frames, dark, flat, invs, mesh=mesh))
-    log = io.StringIO()
-    step = pmesh.sharded_full_pipeline_step_auto(mesh, invs, dest_h=size, dest_w=size, log=log)
-    placed = [pmesh.shard_rows(mesh, torch.from_numpy(a)) for a in (frames, dark, flat)]
-    halo, h_counts = timed("halo_step", lambda: step(*placed, float(flat.max()), ones, ones,
-                                                     ones, 1.0, 1.0, invs, 2.75, 2.75))
-    del placed
-    say(f"mesh_step16: {log.getvalue().strip()}; unsharded {walls['unsharded']:.3f} s "
-        f"launches {ref_counts}, gather step {walls['gather_step']:.3f} s launches "
-        f"{g_counts}, halo step {walls['halo_step']:.3f} s launches {h_counts}")
-    check(log.getvalue().startswith("Halo warp: exchanging 64 boundary rows (batch needs 47)"),
-          f"mesh_step16: dispatcher log {log.getvalue()!r}")
-    for name, out, got in (("gather step", gathered, g_counts), ("halo step", halo, h_counts)):
-        apart = pixels_apart(pmesh.gather(out[0]).cpu().numpy(), want)
-        same = (int(out[1]), int(out[2])) == (int(ref[1]), int(ref[2]))
-        say(f"mesh_step16 {name} vs unsharded: pixels apart {apart}, clip counts equal {same} "
-            f"({int(out[1])}, {int(out[2])})")
-        check(apart == 0 and same, f"mesh_step16: {name} differs from the unsharded step")
-        check(got["stack_clip"] == SHARDS * ref_counts["stack_clip"] > 0,
-              f"mesh_step16: {name} K1 launches {got['stack_clip']}")
-    del ref, gathered, halo
-    cube = torch.from_numpy(frames).to(dev)
-    del frames
+    cube = torch.from_numpy(np.stack([fits_mod.read_file(n).to_numpy()
+                                      for n in lights[:16]])).to(dev)
     gen = torch.Generator(device=dev).manual_seed(9)
     sky30 = frames_with_outliers(gen, 30, size * size, dev).reshape(30, size, size)
     for name, x, mode, kernel in (("winsorized 16", cube, tstk.StackMode.WinsorSigma,

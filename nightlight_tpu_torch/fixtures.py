@@ -12,6 +12,12 @@ channel frames for `rgb`/`lrgb` instead (gen_channels, the recipe of
 scripts/gen_fixtures.py gen_channels): one clean frame per channel of the
 same star field at the channel's gain, chan_<name>.fits.
 
+Beside the files, the inputs of a job on them: live_stacking_job, the JSON
+job of tests/test_rest.py's live stacking, and plan_st_memory, the
+-stMemory for which the port's batch planner makes a given number of
+batches. Both import the port inside the call, so importing this module
+needs numpy alone.
+
     python -m nightlight_tpu_torch.fixtures OUTDIR [N_FRAMES] [SIZE] [--bayer RGGB]
     python -m nightlight_tpu_torch.fixtures OUTDIR --channels [--size SIZE]
 """
@@ -122,6 +128,63 @@ def gen(outdir: str, n_frames: int = 24, size: int = 4096, seed: int = 7,
         _write_fits16(name, signed, w, h)
         names.append(name)
     return names
+
+
+def plan_st_memory(n: int, size: int, device, batches: int, flags=None) -> int:
+    """The smallest -stMemory, in steps of one frame's MiB, for which the
+    port's own batch planner (OpStackBatches._partition) splits n size^2
+    frames into `batches` batches of n // batches on this host: the planner
+    of a JSON job's stackBatches (flags None) or of the CLI `stack` with
+    `flags` (the fused executor's, with its reserve for the next batch).
+    Raises ValueError when no budget does."""
+    import io
+
+    from nightlight_tpu_torch import cli
+    from nightlight_tpu_torch.pipeline.context import new_context
+    from nightlight_tpu_torch.pipeline.ops_stack import OpStackBatches
+
+    if flags is None:
+        planner = OpStackBatches()
+    else:
+        from nightlight_tpu_torch.models.presets import build_command_seq
+
+        args = cli.build_parser().parse_args([*flags, "stack", "light*.fits"])
+        cli.apply_command_defaults(args)
+        planner = next(s for s in build_command_seq(args).steps
+                       if isinstance(s, OpStackBatches))
+
+    class Frame:
+        naxisn = [size, size]
+        file_name = "plan"
+
+    frame_mib = max(1, size * size * 4 >> 20)
+    for st in range(frame_mib, 4 * n * frame_mib + 1, frame_mib):
+        c = new_context(log=io.StringIO(), st_memory=st, device=device)
+        try:
+            _, num_batches, batch_size, _ = planner._partition([Frame] * n, c)
+        except ValueError:  # the budget fits no plan
+            continue
+        if (num_batches, batch_size) == (batches, n // batches):
+            return st
+    raise ValueError(f"no -stMemory plans {n} frames of {size}^2 as {batches} batches")
+
+
+def live_stacking_job(out: str) -> dict:
+    """tests/test_rest.py's live-stacking job (:182-195) on light*.fits,
+    saving `out`."""
+    return {"type": "seq", "steps": [
+        {"type": "loadMany", "filePatterns": ["light*.fits"]},
+        {"type": "stackBatches", "perBatch": {"type": "seq", "steps": [
+            {"type": "starDetect", "radius": 16, "sigma": 15.0,
+             "badPixelSigma": 5.0, "inOutRatio": 1.4},
+            {"type": "selectRef", "target": 1, "mode": "%starsHFR"},
+            {"type": "selectRef", "target": 0, "mode": "%starsHFR"},
+            {"type": "matchHist", "mode": 2},
+            {"type": "align", "k": 20, "threshold": 1.0, "oobMode": 0},
+            {"type": "stack", "mode": 6, "sigmaLow": 2.75, "sigmaHigh": 2.75},
+        ]}},
+        {"type": "save", "filePattern": out},
+    ]}
 
 
 def _write_fits16(name: str, signed: np.ndarray, w: int, h: int) -> None:

@@ -1,4 +1,4 @@
-"""Device mesh and sharded pipeline steps, mirror of
+"""Device mesh and row-sharded values, mirror of
 nightlight_tpu/parallel/mesh.py.
 
 The JAX package drives every local device from one process: a 1-D
@@ -15,36 +15,30 @@ of torch devices (``Mesh``), and writes each collective out as a copy:
 * ``halo`` copies neighbour rows (``Tensor.to(dev, non_blocking=True)``),
   from as many shards as the halo spans, and tells the caller where the
   frame ends instead of sending zeros;
-  ``ppermute`` in the step functions below sends zeros, as JAX's does to a
-  shard without a source;
 * ``take_flat`` gathers single pixels at global flat indices from the
   shards that own them; ``merge_top_k`` merges per-shard top-k lists on
   the lead;
 * an all-gather is ``torch.cat`` of the blocks on the lead device
   (``RowSharded.gather``), counted per asking site in ``GATHERS``.
 
-Under ``Context.mesh`` every loaded frame is row-sharded at load
-(``place_on_mesh``; io/fits.py and io/ingest.py upload each shard's rows
-straight to its device), and the per-frame operators of the ``stack`` path
-run on each shard's rows: calibrate, bad-pixel repair, statistics, star
-detection (``sharded_star_detect``), histogram match and the warp
-(ops/resample.py). ``OpStack`` stacks each device's blocks into its block
-of the batch cube, and the stacked image stays row-sharded through the
-final detection and the per-pixel stretch operators; the writers gather.
+This is the one sharded path: the CLI's ``-shard`` sets ``Context.mesh``,
+and every run with it set takes this path. Every loaded frame is
+row-sharded at load (``place_on_mesh``; io/fits.py and io/ingest.py upload
+each shard's rows straight to its device), and the per-frame operators of
+the ``stack`` path run on each shard's rows: calibrate, bad-pixel repair,
+statistics, star detection (``sharded_star_detect``), histogram match and
+the warp (ops/resample.py). ``OpStack`` stacks each device's blocks into
+its block of the batch cube (ops/stack.py ``stack_sharded``: each shard's
+kernel on its device, the clip counts summed), and the stacked image stays
+row-sharded through the final detection and the per-pixel stretch
+operators; the writers gather.
 
 A device may appear more than once in a mesh: the CPU tests run 8 shards on
 the CPU (``make_mesh([torch.device("cpu")] * 8)``, beside JAX's 8 virtual
 CPU devices), and ``chip_smoke.py`` runs 4 shards on one card. Each shard's
-stack launches its kernel (K1, K2 or K3) on its own device.
-
-Where JAX jits a step with shardings and returns the compiled function, the
-port returns a plain callable with the same arguments and results (the
-``axis`` arguments are kept for that; a value's axis name is its mesh's). The
-calibrate / match / warp arithmetic is element-wise work that XLA fuses, so
-it stays plain PyTorch, with ``ops/pixelmath.py:fma32`` where XLA contracts
-``a*b + c``. Every per-pixel result is the same wherever it runs, so a
-sharded step equals the unsharded one bit for bit (the halo warp: where the
-halo covers the displacement).
+stack launches its kernel (K1, K2 or K3) on its own device. Every per-pixel
+result is the same wherever it runs, so a sharded job equals the unsharded
+one bit for bit.
 """
 
 from __future__ import annotations
@@ -57,8 +51,6 @@ import numpy as np
 import torch
 
 from nightlight_tpu_torch import trace
-from nightlight_tpu_torch.ops import stack as stk
-from nightlight_tpu_torch.ops.pixelmath import _f32, fma32
 
 
 @dataclass(frozen=True)
@@ -86,9 +78,9 @@ class Mesh:
 GATHERS: collections.Counter = collections.Counter()
 trace.source("mesh.gathers", lambda: GATHERS)
 
-# the most rows a shard takes from each neighbour for a warp by halo
-# exchange (sharded_full_pipeline_step_auto; the batch planner counts it
-# on every frame's shard)
+# the batch planner's reserve of halo rows from each neighbour on every
+# frame's shard (pipeline/ops_stack.py); the halo cap of the JAX package's
+# warp dispatcher
 HALO_CAP = 128
 
 
@@ -437,298 +429,3 @@ def sharded_auto_stretch(mesh: Mesh, max_iter: int = 50, axis: str = "pix"):
                             max_iter=max_iter)
 
     return fn
-
-
-def _calibrate_match(frames, dark, flat, flat_max, ref_locs, ref_scales, loc0, scale0):
-    """Dark and flat calibration (pre/preprocess.go:68-99) and the per-frame
-    linear histogram match (pixelops.go:601-611) of (N, rows, W) frames,
-    one frame at a time (the temporaries stay one frame in size)."""
-    mult = _f32(ref_scales, frames) / _f32(scale0, frames)
-    off = fma32(-_f32(loc0, frames), mult, _f32(ref_locs, frames))
-    flat_max = _f32(flat_max, frames)
-    out = torch.empty_like(frames)
-    for i in range(frames.shape[0]):
-        cal = frames[i] - dark
-        cal = torch.where(flat <= 0.0, cal, cal * flat_max / flat)
-        out[i] = fma32(cal, mult[i], off[i])
-    return out
-
-
-def _warp_frames(frames, invs, row0: int = 0, rows: int | None = None,
-                 dest_h: int | None = None, src_row0: int = 0):
-    """Per-frame affine bilinear warp with NaN out-of-bounds fill (the
-    alignment phase, internal/fits/project.go:26-76). invs: (N, 6) inverse
-    transforms [a, b, c, d, e, f].
-
-    Called as the JAX function, (frames, invs), it warps whole frames. A
-    shard warps its destination rows [row0, row0 + rows) of a dest_h-row
-    frame from a source block whose first row is global row src_row0: the
-    whole gathered frame (src_row0 0) or its block between the received
-    halos; a source row outside the block is missing data (NaN), as a pixel
-    out of the frame is."""
-    n, src_rows, w = frames.shape
-    dest_h = src_rows if dest_h is None else dest_h
-    rows = dest_h - row0 if rows is None else rows
-    dev = frames.device
-    invs = _f32(np.asarray(invs, np.float32).reshape(-1, 6), frames)
-    col = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
-    row = (row0 + torch.arange(rows, device=dev)).to(torch.float32)[:, None]
-    nan = torch.tensor(float("nan"), device=dev)
-    out = torch.empty((n, rows, w), dtype=torch.float32, device=dev)
-    for i in range(n):
-        inv = invs[i]
-        # the multiply-adds as XLA's CPU code contracts them in the jitted
-        # JAX steps (held bit for bit by tests/test_torch_mesh.py)
-        px = fma32(inv[0], col, inv[1] * row) + inv[2]
-        py = fma32(inv[3], col, inv[4] * row) + inv[5]
-        xl = torch.floor(px)
-        yl = torch.floor(py)
-        xr = px - xl
-        yr = py - yl
-        xl_i = xl.to(torch.int64)
-        yl_i = yl.to(torch.int64)
-        # global out-of-bounds (project.go:52-61), or beyond the source block
-        yl_loc = yl_i - src_row0
-        oob = ((xl_i < 0) | (xl_i + 1 >= w) | (yl_i < 0) | (yl_i + 1 >= dest_h)
-               | (yl_loc < 0) | (yl_loc + 1 >= src_rows))
-        xc = xl_i.clamp(0, w - 2)
-        yc = yl_loc.clamp(0, src_rows - 2)
-        img = frames[i]
-        v00 = img[yc, xc]
-        v01 = img[yc, xc + 1]
-        v10 = img[yc + 1, xc]
-        v11 = img[yc + 1, xc + 1]
-        top = fma32(v00, 1 - xr, v01 * xr)
-        bottom = fma32(v10, 1 - xr, v11 * xr)
-        out[i] = torch.where(oob, nan, fma32(top, 1 - yr, bottom * yr))
-    return out
-
-
-def _pipeline_step(frames, dark, flat, flat_max, weights, ref_locs, ref_scales,
-                   loc0, scale0, sigma_low, sigma_high, mode: int,
-                   mesh: Mesh | None = None, axis: str = "pix"):
-    """One fused training-step analog: calibrate every frame, match
-    histograms to the reference, and reduce the frame axis with the
-    configured outlier-rejection stack. With `mesh` set the stack runs
-    row-sharded (ops/stack.py stack_sharded: each shard's kernel on its
-    device, the clip counts summed)."""
-    matched = _calibrate_match(gather(frames), gather(dark), gather(flat), flat_max,
-                               ref_locs, ref_scales, loc0, scale0)
-    return stk.stack(matched, stk.StackMode(mode), weights=weights,
-                     sigma_low=float(sigma_low), sigma_high=float(sigma_high),
-                     ref_frame_loc=float(loc0), mesh=mesh, axis=axis)
-
-
-def _full_pipeline_step(frames, dark, flat, flat_max, weights, ref_locs, ref_scales,
-                        loc0, scale0, invs, sigma_low, sigma_high, mode: int,
-                        mesh: Mesh | None = None, axis: str = "pix"):
-    """The complete per-batch program: calibrate + histogram-match +
-    align-warp + outlier-rejection stack, unsharded up to the stack; with
-    `mesh` set the stack runs row-sharded (see _pipeline_step)."""
-    matched = _calibrate_match(gather(frames), gather(dark), gather(flat), flat_max,
-                               ref_locs, ref_scales, loc0, scale0)
-    warped = _warp_frames(matched, invs)
-    del matched
-    return stk.stack(warped, stk.StackMode(mode), weights=weights,
-                     sigma_low=float(sigma_low), sigma_high=float(sigma_high),
-                     ref_frame_loc=float(loc0), mesh=mesh, axis=axis)
-
-
-def _sharded_calibrate_match(mesh, frames, dark, flat, flat_max, ref_locs, ref_scales,
-                             loc0, scale0) -> RowSharded:
-    """Calibrate and match each shard's rows on its device."""
-    frames, dark, flat = (shard_rows(mesh, x) for x in (frames, dark, flat))
-    blocks = [_calibrate_match(fb, db, lb, flat_max, ref_locs, ref_scales, loc0, scale0)
-              for fb, db, lb in zip(frames.blocks, dark.blocks, flat.blocks)]
-    return RowSharded(mesh, frames.shape, blocks)
-
-
-def _stack_step(mesh, mode, warped: RowSharded, weights, loc0, sigma_low, sigma_high):
-    return stk.stack_sharded(warped, mesh, stk.StackMode(mode), weights=weights,
-                             sigma_low=float(sigma_low), sigma_high=float(sigma_high),
-                             ref_frame_loc=float(loc0))
-
-
-def _warp_frames_halo(frames, invs, mesh: Mesh, halo: int, axis: str = "pix") -> RowSharded:
-    """Row-sharded affine warp with HALO EXCHANGE instead of a gather: each
-    shard receives its neighbours' boundary rows (2 x halo x W words a
-    frame) and warps locally, instead of all-gathering whole frames.
-    Alignment displacements in stacking are small (a few pixels of
-    dither), so a fixed halo covers them; source pixels beyond the halo
-    produce NaN -- the same missing-data protocol as out-of-bounds pixels,
-    which the stacker already skips.
-
-    frames: (N, H, W) RowSharded over the mesh. invs: (N, 6)."""
-    frames = shard_rows(mesh, frames)
-    n_shards = mesh.size
-    n, h, w = frames.shape
-    rows_per = h // n_shards
-    blocks = frames.blocks
-    out = []
-    for k, (dev, fl) in enumerate(zip(mesh.devices, blocks)):
-        # the ppermutes: my bottom rows -> next shard's top halo, my top
-        # rows -> previous shard's bottom halo; a shard without a source
-        # receives zeros
-        top = blocks[k - 1][:, -halo:, :] if k > 0 else None
-        bot = blocks[k + 1][:, :halo, :] if k + 1 < n_shards else None
-        for part in (top, bot):
-            if part is not None:
-                _moved("halo", part)
-        recv_top = (_to(top, dev) if top is not None
-                    else torch.zeros_like(fl[:, -halo:, :]))
-        recv_bot = (_to(bot, dev) if bot is not None
-                    else torch.zeros_like(fl[:, :halo, :]))
-        padded = torch.cat([recv_top, fl, recv_bot], dim=1)  # (N, halo+rows+halo, W)
-        start = k * rows_per  # first global row of my block
-        out.append(_warp_frames(padded, invs, row0=start, rows=rows_per, dest_h=h,
-                                src_row0=start - halo))
-    return RowSharded(mesh, frames.shape, out)
-
-
-def sharded_full_pipeline_step_halo(mesh: Mesh, mode: int = int(stk.StackMode.Sigma),
-                                    halo: int = 32, axis: str = "pix"):
-    """Like sharded_full_pipeline_step, but the warp exchanges halo rows
-    with the neighbouring shards instead of gathering frames: the copies
-    per frame drop from O(H x W) to O(2 x halo x W). The stack reduction
-    runs per shard (the kernels on each shard's device)."""
-
-    def step(frames, dark, flat, flat_max, weights, ref_locs, ref_scales,
-             loc0, scale0, invs, sigma_low, sigma_high):
-        matched = _sharded_calibrate_match(mesh, frames, dark, flat, flat_max, ref_locs,
-                                           ref_scales, loc0, scale0)
-        warped = _warp_frames_halo(matched, invs, mesh, halo, axis)
-        del matched
-        return _stack_step(mesh, mode, warped, weights, loc0, sigma_low, sigma_high)
-
-    return step
-
-
-def required_halo(invs, dest_h: int, dest_w: int) -> int:
-    """Smallest halo (in rows) that lets every destination pixel of every
-    frame read its bilinear source rows locally under the given inverse
-    transforms: max |py - y| over the destination corners, plus 1 for the
-    bilinear +1 neighbor. Affine transforms attain their extreme row
-    displacement at a corner, so checking the 4 corners is exact."""
-    invs = np.asarray(invs, np.float64).reshape(-1, 6)
-    corners = [(0.0, 0.0), (dest_w - 1.0, 0.0), (0.0, dest_h - 1.0),
-               (dest_w - 1.0, dest_h - 1.0)]
-    worst = 0.0
-    for inv in invs:
-        for (x, y) in corners:
-            py = inv[3] * x + inv[4] * y + inv[5]
-            worst = max(worst, abs(py - y))
-    return int(math.floor(worst)) + 2
-
-
-def sharded_full_pipeline_step_auto(mesh: Mesh, invs,
-                                    mode: int = int(stk.StackMode.Sigma),
-                                    dest_h: int = 0, dest_w: int = 0,
-                                    halo_cap: int = HALO_CAP, axis: str = "pix", log=None):
-    """Pick the warp strategy from the batch's ACTUAL transforms: the
-    halo-exchange warp with a halo sized to the largest row displacement
-    (bucketed to powers of two), or the gather-warp step when the
-    displacement exceeds `halo_cap` rows.
-
-    The fixed-halo step silently NaNs rows whose source lies beyond the
-    halo (the stacker then treats them as missing data) -- a frame with a
-    40 px dither would quietly lose rows. This dispatcher makes that
-    impossible for host-known transforms: the halo always covers the batch
-    or the gather path takes over. Returns the step function."""
-    need = required_halo(invs, dest_h, dest_w)
-    if need > halo_cap:
-        if log is not None:
-            log.write(f"Halo warp: displacement needs {need} rows > cap "
-                      f"{halo_cap}; using the gather-warp step\n")
-        return sharded_full_pipeline_step(mesh, mode, axis=axis)
-    halo = 8
-    while halo < need:
-        halo *= 2
-    rows_per = dest_h // mesh.size if dest_h else halo
-    halo = min(halo, max(rows_per, 1))
-    if halo < need:
-        # shard blocks are shorter than the needed halo: exchange cannot
-        # reach far enough, use the gather step
-        if log is not None:
-            log.write(f"Halo warp: displacement {need} exceeds shard height "
-                      f"{rows_per}; using the gather-warp step\n")
-        return sharded_full_pipeline_step(mesh, mode, axis=axis)
-    if log is not None:
-        log.write(f"Halo warp: exchanging {halo} boundary rows "
-                  f"(batch needs {need})\n")
-    return sharded_full_pipeline_step_halo(mesh, mode, halo=halo, axis=axis)
-
-
-def sharded_full_pipeline_step(mesh: Mesh, mode: int = int(stk.StackMode.Sigma),
-                               axis: str = "pix"):
-    """The calibrate+match+warp+stack step row-sharded over the mesh: each
-    shard calibrates and matches its rows; the warp all-gathers the matched
-    frames (a pixel's source may lie in any shard) and each shard warps its
-    own destination rows; the stack runs per shard. Returns the step
-    function."""
-
-    def step(frames, dark, flat, flat_max, weights, ref_locs, ref_scales,
-             loc0, scale0, invs, sigma_low, sigma_high):
-        matched = _sharded_calibrate_match(mesh, frames, dark, flat, flat_max, ref_locs,
-                                           ref_scales, loc0, scale0)
-        full = matched.gather()
-        del matched
-        n, h, w = full.shape
-        rows = h // mesh.size
-        blocks = [_warp_frames(_to(full, dev), invs, row0=k * rows, rows=rows)
-                  for k, dev in enumerate(mesh.devices)]
-        del full
-        warped = RowSharded(mesh, (n, h, w), blocks)
-        return _stack_step(mesh, mode, warped, weights, loc0, sigma_low, sigma_high)
-
-    return step
-
-
-def _place_inputs(mesh: Mesh, frames, dark, flat):
-    """Host frames, dark and flat row-sharded over the mesh, the flat's
-    maximum, and a vector of N ones (the weights and the reference
-    locations and scales of run_sharded_*)."""
-    placed = [shard_rows(mesh, torch.from_numpy(np.ascontiguousarray(a, np.float32)))
-              for a in (frames, dark, flat)]
-    ones = _to(torch.ones(frames.shape[0], dtype=torch.float32), mesh.lead)
-    return (*placed, float(np.float32(flat.max())), ones)
-
-
-def run_sharded_full_stack(frames: np.ndarray, dark: np.ndarray, flat: np.ndarray,
-                           invs: np.ndarray, mesh: Mesh | None = None,
-                           mode: int = int(stk.StackMode.Sigma),
-                           sigma_low: float = 2.75, sigma_high: float = 2.75):
-    """Place host frames on the mesh and run one full calibrate+match+warp+
-    stack step. invs: (N, 6) inverse alignment transforms."""
-    if mesh is None:
-        mesh = make_mesh()
-    fn = sharded_full_pipeline_step(mesh, mode)
-    dev_frames, dark_s, flat_s, flat_max, ones = _place_inputs(mesh, frames, dark, flat)
-    return fn(dev_frames, dark_s, flat_s, flat_max, ones, ones, ones, 1.0, 1.0,
-              invs, sigma_low, sigma_high)
-
-
-def sharded_pipeline_step(mesh: Mesh, mode: int = int(stk.StackMode.Sigma),
-                          axis: str = "pix"):
-    """The calibrate+match+stack step row-sharded over the mesh: each shard
-    calibrates and matches its rows, then runs its stack kernel on them.
-    Returns the step function."""
-
-    def step(frames, dark, flat, flat_max, weights, ref_locs, ref_scales, loc0, scale0,
-             sigma_low, sigma_high):
-        matched = _sharded_calibrate_match(mesh, frames, dark, flat, flat_max, ref_locs,
-                                           ref_scales, loc0, scale0)
-        return _stack_step(mesh, mode, matched, weights, loc0, sigma_low, sigma_high)
-
-    return step
-
-
-def run_sharded_stack(frames: np.ndarray, dark: np.ndarray, flat: np.ndarray,
-                      mesh: Mesh | None = None, mode: int = int(stk.StackMode.Sigma),
-                      sigma_low: float = 2.75, sigma_high: float = 2.75):
-    """Convenience wrapper: place host frames on the mesh and run one step."""
-    if mesh is None:
-        mesh = make_mesh()
-    fn = sharded_pipeline_step(mesh, mode)
-    dev_frames, dark_s, flat_s, flat_max, ones = _place_inputs(mesh, frames, dark, flat)
-    return fn(dev_frames, dark_s, flat_s, flat_max, ones, ones, ones, 1.0, 1.0,
-              sigma_low, sigma_high)

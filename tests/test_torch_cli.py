@@ -123,15 +123,17 @@ def test_cli_without_a_card_raises(tmp_path, monkeypatch):
     assert tctx.new_context(log=io.StringIO(), device="cpu").device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("script", ["phase_split", "gather_split", "mesh_cards", "load_split"])
-def test_measurement_scripts_without_a_card_raise(monkeypatch, script):
+@pytest.mark.parametrize("script,message", [
+    ("mesh_cards", "no CUDA device"), ("microbench_layout", "needs a CUDA device"),
+    ("microbench_tile", "needs a CUDA device")])
+def test_measurement_scripts_without_a_card_raise(monkeypatch, script, message):
     """The measurement scripts time the card and nothing else: without a
     CUDA device they stop before any work."""
     import importlib
 
     mod = importlib.import_module(f"nightlight_tpu_torch.scripts.{script}")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(SystemExit, match="no CUDA device"):
+    with pytest.raises(SystemExit, match=message):
         mod.main([])
 
 

@@ -95,19 +95,20 @@ def test_place_on_mesh_rows_and_replication(mesh, jmesh, rng):
     assert jm.place_on_mesh(jnp.asarray(img[:250]), jmesh).sharding.is_fully_replicated
 
 
-def test_halo_rows_and_frame_edges(mesh, rng):
+@pytest.mark.parametrize("above,below", [(2, 1), (33, 70), (0, 8), (32, 32), (224, 0)])
+def test_halo_rows_and_frame_edges(mesh, rng, above, below):
     """halo copies the neighbours' boundary rows; the frame's first and last
     shards receive none on their outer side (a flag, not zeros). A halo
     taller than a shard takes its rows from as many shards as it spans (33
-    rows above: two shards; 70 below: three), up to the frame's edge."""
+    rows above: two shards; 70 below: three; 224 above: every shard before
+    the last), up to the frame's edge; a side of 0 rows receives nothing,
+    and a shard that receives no row keeps its own block."""
     img = _sky(rng)
-    parts = tm.halo(_sharded(mesh, img), 2, 1)
-    for k, (ext, top, bottom) in enumerate(parts):
-        assert (top, bottom) == ((0 if k == 0 else 2), (0 if k == 7 else 1))
+    x = _sharded(mesh, img)
+    for k, (ext, top, bottom) in enumerate(tm.halo(x, above, below)):
+        assert (top, bottom) == (min(above, 32 * k), min(below, 224 - 32 * k))
         np.testing.assert_array_equal(ext.numpy(), img[32 * k - top:32 * k + 32 + bottom])
-    for k, (ext, top, bottom) in enumerate(tm.halo(_sharded(mesh, img), 33, 70)):
-        assert (top, bottom) == (min(33, 32 * k), min(70, 224 - 32 * k))
-        np.testing.assert_array_equal(ext.numpy(), img[32 * k - top:32 * k + 32 + bottom])
+        assert (ext is x.blocks[k]) == (top == bottom == 0)
 
 
 def test_reductions_and_psum(mesh, rng):
@@ -196,13 +197,15 @@ def test_bad_pixel_repair_halo_and_edges(mesh, jmesh, rng):
     np.testing.assert_allclose(_np(rep_s), np.asarray(rep_j), rtol=0, atol=1e-6)
 
 
-def test_calibrate_and_match_per_shard(mesh, jmesh, rng):
+@pytest.mark.parametrize("args", [(101.5, 2.25, 1000.0, 20.0), (1.0, 1.0, 1.0, 1.0)],
+                         ids=["match", "unit"])
+def test_calibrate_and_match_per_shard(mesh, jmesh, rng, args):
     """Dark subtraction, flat division (zero flat pixels pass through) and
     the location/scale match of a sharded frame, block by block with the
     masters sharded alike: bit for bit the unsharded functions, and bit for
     bit the JAX package's jitted functions on its sharded frame (the match
     rounds its multiply-adds once, as XLA contracts them: ops/pixelmath.py
-    fma32)."""
+    fma32). The unit match, x*1+0, returns the calibrated frame as it is."""
     from nightlight_tpu.ops import pixelmath as jpm
     from nightlight_tpu.ops import prestack as jps
     from nightlight_tpu_torch.ops import pixelmath as tpm
@@ -221,9 +224,10 @@ def test_calibrate_and_match_per_shard(mesh, jmesh, rng):
     jx, jd, jf = (jm.place_on_mesh(jnp.asarray(a), jmesh) for a in (img, dark, flat))
     jcal = jps.flat_divide(jps.subtract(jx, jd), jf, jnp.float32(fmax))
     np.testing.assert_array_equal(_np(cal), np.asarray(jcal))
-    args = (101.5, 2.25, 1000.0, 20.0)
     got = tm.per_block(lambda b: tpm.match_histogram(b, *args), cal)
     np.testing.assert_array_equal(_np(got), tpm.match_histogram(want, *args).numpy())
+    if args == (1.0, 1.0, 1.0, 1.0):
+        np.testing.assert_array_equal(_np(got), want.numpy())
     jgot = np.asarray(jpm.match_histogram(jcal, *(jnp.float32(a) for a in args)))
     np.testing.assert_array_equal(_np(got), jgot)
 
@@ -279,14 +283,19 @@ def test_bin_sharded(mesh, rng):
     ([0.999, -0.02, 4.0, 0.02, 0.999, 1.5], "halo"),  # a small rotation, shift-blend
     ([0.995, -0.1, 10.0, 0.1, 0.995, -45.0], "warp"),  # the gather warp, beyond the halo
     ([1.0, 0.0, 2.0, 0.0, 1.0, 40.0], "warp"),  # 40 rows: more than a shard's 32
+    ([1.0, 0.0, 0.0, 0.0, 1.0, 0.0], "halo"),  # the identity
+    ([1.0, 0.0, 0.37, 0.0, 1.0, 0.0], "halo"),  # a sub-pixel shift along x alone
+    ([1.0, 0.0, 0.0, 0.0, 1.0, 20.0], "halo"),  # 20 rows: within a shard's 32
+    ([1.0, 0.0, 0.0, 0.0, 1.0, 300.0], "warp"),  # the frame left entirely
 ])
 def test_project_sharded(mesh, jmesh, rng, trans, path):
     """project() of a sharded frame equals the unsharded projection bit for
     bit, NaNs in the same places (never a NaN where the unsharded warp has
     a value); the source comes from a halo where the displacement fits a
-    shard's rows and is gathered ("warp") where it does not. Against the
-    JAX package's projection of its sharded frame: its band (the port's
-    px/py round apart from XLA's contractions)."""
+    shard's rows and is gathered ("warp") where it does not. A shift past
+    the frame's height leaves every pixel NaN. Against the JAX package's
+    projection of its sharded frame: its band (the port's px/py round apart
+    from XLA's contractions)."""
     from nightlight_tpu.ops import resample as jrs
     from nightlight_tpu_torch.ops import resample as trs
 
@@ -299,7 +308,10 @@ def test_project_sharded(mesh, jmesh, rng, trans, path):
     assert isinstance(got, tm.RowSharded) and not got.replicated
     assert dict(tm.GATHERS) == ({} if path == "halo" else {"warp": 1})
     np.testing.assert_array_equal(_np(got), want)
-    assert np.isfinite(want).mean() > 0.5
+    if abs(trans[5]) >= H:
+        assert np.isnan(want).all()
+    else:
+        assert np.isfinite(want).mean() > 0.5
     j = np.asarray(jrs.project(jm.place_on_mesh(jnp.asarray(img), jmesh), [W, H], trans,
                                float("nan")))
     _band(_np(got), j)

@@ -17,7 +17,7 @@ import os
 import pytest
 import torch
 
-from nightlight_tpu_torch import cli, trace
+from nightlight_tpu_torch import cli, fixtures, trace
 from nightlight_tpu_torch.models.presets import build_command_seq
 from nightlight_tpu_torch.parallel import mesh as pm
 from nightlight_tpu_torch.pipeline import op_from_dict
@@ -195,6 +195,40 @@ def test_stack_batches_counts_the_plan(cards):
     after = trace.counter("stack.batches")
     assert after.get("device", 0) - before.get("device", 0) == 2
     assert after.get("mesh", 0) - before.get("mesh", 0) == 1
+
+
+def test_plan_st_memory_finds_the_live_stacking_budget(monkeypatch):
+    """fixtures.plan_st_memory searches the -stMemory for a plan: on 4
+    threads, 10 frames of 256² in two batches of 5 take 3 MiB, the budget
+    of the live-stacking job in tests/test_torch_rest.py, and the planner
+    makes that plan under it; no budget makes batches of no frame."""
+    monkeypatch.setattr(os, "cpu_count", lambda: 4)
+    st = fixtures.plan_st_memory(10, 256, CPU, 2)
+    assert st == 3
+    planner = next(s for s in op_from_dict(fixtures.live_stacking_job("x.fits")).steps
+                   if isinstance(s, OpStackBatches))
+
+    class Frame:
+        naxisn = [256, 256]
+        file_name = "plan"
+
+    c = new_context(log=io.StringIO(), st_memory=st, device=CPU)
+    assert planner._partition([Frame] * 10, c)[1:3] == (2, 5)
+    with pytest.raises(ValueError, match="no -stMemory plans"):
+        fixtures.plan_st_memory(10, 256, CPU, 20)
+
+
+def test_live_stacking_job_is_a_served_job():
+    """fixtures.live_stacking_job is a job the port's DSL takes: load, a
+    stackBatches of detection, two reference selections, the match, the
+    alignment and the auto stack, and the save to the name given."""
+    job = fixtures.live_stacking_job("out.fits")
+    op = op_from_dict(job)
+    assert [type(s).__name__ for s in op.steps] == ["OpLoadMany", "OpStackBatches", "OpSave"]
+    assert [type(s).__name__ for s in op.steps[1].per_batch.steps] == [
+        "OpStarDetect", "OpSelectReference", "OpSelectReference", "OpMatchHistogram",
+        "OpAlign", "OpStack"]
+    assert job["steps"][-1] == {"type": "save", "filePattern": "out.fits"}
 
 
 def _bytes():

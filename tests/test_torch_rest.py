@@ -25,6 +25,7 @@ from nightlight_tpu.ops import stats as jstats
 from nightlight_tpu.serve import rest as jrest
 from nightlight_tpu_torch import cli as tcli
 from nightlight_tpu_torch import kernels
+from nightlight_tpu_torch.fixtures import live_stacking_job
 from nightlight_tpu_torch.image import Image as TImage
 from nightlight_tpu_torch.io import fits as tfits
 from nightlight_tpu_torch.serve import rest as trest
@@ -280,23 +281,6 @@ def _post_raw_chunked(host, port, payload):
     return header.decode(), chunks
 
 
-def live_job(out):
-    """tests/test_rest.py's live-stacking job, saving to `out`."""
-    return {"type": "seq", "steps": [
-        {"type": "loadMany", "filePatterns": ["light*.fits"]},
-        {"type": "stackBatches", "perBatch": {"type": "seq", "steps": [
-            {"type": "starDetect", "radius": 16, "sigma": 15.0,
-             "badPixelSigma": 5.0, "inOutRatio": 1.4},
-            {"type": "selectRef", "target": 1, "mode": "%starsHFR"},
-            {"type": "selectRef", "target": 0, "mode": "%starsHFR"},
-            {"type": "matchHist", "mode": 2},
-            {"type": "align", "k": 20, "threshold": 1.0, "oobMode": 0},
-            {"type": "stack", "mode": 6, "sigmaLow": 2.75, "sigmaHigh": 2.75},
-        ]}},
-        {"type": "save", "filePattern": out},
-    ]}
-
-
 def _serve_one(srv, job):
     thread = _start(srv)
     try:
@@ -322,8 +306,8 @@ def test_live_stacking_matches_jax_server(tmp_path, monkeypatch):
     # the thread count enters the batch plan; pin it for both servers
     monkeypatch.setattr(os, "cpu_count", lambda: 4)
     jnp.zeros(1).block_until_ready()
-    jheader, jchunks = _serve_one(jrest.make_server(0, 3), live_job("jax.fits"))
-    theader, tchunks = _serve_one(trest.make_server(0, 3, device="cpu"), live_job("port.fits"))
+    jheader, jchunks = _serve_one(jrest.make_server(0, 3), live_stacking_job("jax.fits"))
+    theader, tchunks = _serve_one(trest.make_server(0, 3, device="cpu"), live_stacking_job("port.fits"))
 
     for header, chunks in ((jheader, jchunks), (theader, tchunks)):
         assert "Transfer-Encoding: chunked" in header
